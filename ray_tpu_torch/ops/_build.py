@@ -1,0 +1,76 @@
+"""Lazy nvcc build of the port's CUDA sources into a ctypes-loadable library.
+
+Each source under ``ops/csrc/`` compiles on its own into
+``build/ray_tpu_torch/<name>-<hash>.so`` at the repository root, at the first
+launch of its kernel and never at import: the CPU-only test hosts import every
+module and have no ``nvcc``. The file name carries a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one loads the library
+already built. A file lock keeps concurrent processes from building the same
+library twice; the finished library is moved into place atomically.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): "
+                           "cannot build the port's kernels")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.exists():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return str(nvcc)
+
+
+def library_path(source: Path) -> Path:
+    key = hashlib.sha256(source.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}-{key}.so"
+
+
+def build(source: Path) -> Tuple[Path, float]:
+    """Compile ``source`` unless its library exists; returns the library's
+    path and the seconds spent compiling. Raises on any nvcc failure."""
+    out = library_path(source)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out, 0.0
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+        return out, seconds
+
+
+def load(source: Path) -> ctypes.CDLL:
+    """The built library for ``source``, building it on first use."""
+    lib = _loaded.get(source.name)
+    if lib is None:
+        lib = _loaded[source.name] = ctypes.CDLL(str(build(source)[0]))
+    return lib
