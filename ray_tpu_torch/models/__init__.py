@@ -1,6 +1,22 @@
 """ray_tpu_torch.models — model families ported to PyTorch."""
 
 from ray_tpu_torch.models import gpt2
-from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models.convert import opt_state_from_jax, params_from_jax
+from ray_tpu_torch.models.gpt2 import (
+    build_train_step,
+    chunked_xent_tied,
+    loss_fn,
+    make_optimizer,
+    make_train_state,
+)
 
-__all__ = ["gpt2", "params_from_jax"]
+__all__ = [
+    "build_train_step",
+    "chunked_xent_tied",
+    "gpt2",
+    "loss_fn",
+    "make_optimizer",
+    "make_train_state",
+    "opt_state_from_jax",
+    "params_from_jax",
+]

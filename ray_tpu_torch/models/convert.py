@@ -1,7 +1,8 @@
-"""Weight bridge: the Flax GPT-2 parameter tree to the torch ``state_dict``.
+"""Weight bridge: the Flax GPT-2 parameter tree to the torch ``state_dict``,
+and optax's AdamW state to torch's.
 
-The tree holds numpy arrays (``jax.tree.map(np.asarray, params)`` on the
-JAX side), so this module needs neither JAX nor the JAX package. Dense
+The trees hold numpy arrays (``jax.tree.map(np.asarray, tree)`` on the JAX
+side), so this module needs neither JAX nor the JAX package. Dense
 ``kernel`` is (in, out) and becomes a Linear ``weight`` (out, in); LayerNorm
 ``scale`` becomes ``weight``; Embed ``embedding`` becomes ``weight``.
 """
@@ -48,3 +49,35 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             sd[f"{name}.weight"] = _t(dense["kernel"]).T.contiguous()
             sd[f"{name}.bias"] = _t(dense["bias"])
     return sd
+
+
+def opt_state_from_jax(opt_state_tree, model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer) -> None:
+    """Load optax's adamw state into ``optimizer`` (a ``torch.optim.AdamW``
+    over ``model``'s parameters), so a JAX train state resumes in the port.
+
+    ``opt_state_tree`` is the optax state with numpy leaves, the tuple of
+    ``optax.adamw``'s chain; its ``ScaleByAdamState`` (``count``, ``mu``,
+    ``nu``) becomes each parameter's ``step``, ``exp_avg`` and
+    ``exp_avg_sq``, with the moments laid out as ``params_from_jax`` lays
+    out the parameters (Dense kernels transposed).
+    Raises ValueError without an Adam state and KeyError on a missing leaf."""
+    adam = next((s for s in opt_state_tree
+                 if all(hasattr(s, f) for f in ("count", "mu", "nu"))), None)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) in the "
+                         "optimizer state")
+    count = float(np.asarray(adam.count))
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    index = {id(p): name for name, p in model.named_parameters()}
+    # a state dict numbers the parameters in param-group order; loading it
+    # moves the moments to each parameter's device and dtype
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    state = {}
+    for i, p in enumerate(params):
+        name = index[id(p)]
+        state[i] = {"step": torch.tensor(count, dtype=torch.float32),
+                    "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+    optimizer.load_state_dict({
+        "state": state,
+        "param_groups": optimizer.state_dict()["param_groups"]})

@@ -4,6 +4,7 @@ from ray_tpu_torch.ops.attention import (
     attention_reference,
     finalize_flash,
     flash_attention,
+    flash_attention_bwd,
     flash_attention_fwd,
     online_block_update,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "attention_reference",
     "finalize_flash",
     "flash_attention",
+    "flash_attention_bwd",
     "flash_attention_fwd",
     "online_block_update",
 ]

@@ -5,8 +5,9 @@ Each source under ``ops/csrc/`` compiles on its own into
 launch of its kernel and never at import: the CPU-only test hosts import every
 module and have no ``nvcc``. The file name carries a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one loads the library
-already built. A file lock keeps concurrent processes from building the same
-library twice; the finished library is moved into place atomically.
+already built. A file lock per source keeps concurrent processes from
+building the same library twice while different sources build side by side;
+the finished library is moved into place atomically.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -50,7 +52,7 @@ def build(source: Path) -> Tuple[Path, float]:
     path and the seconds spent compiling. Raises on any nvcc failure."""
     out = library_path(source)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
+    with open(BUILD_DIR / f".{source.stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():
             return out, 0.0
@@ -66,6 +68,31 @@ def build(source: Path) -> Tuple[Path, float]:
                                f"{proc.stderr[-4000:]}")
         os.replace(tmp, out)
         return out, seconds
+
+
+def ptxas_summary(library: Path) -> Dict[str, str]:
+    """{kernel/type/D: "N registers, M bytes spilled"} from the
+    ``-Xptxas -v`` log that ``build`` left beside ``library`` (empty when
+    there is none)."""
+    log = library.with_suffix(".log")
+    if not log.exists():
+        return {}
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"(flash_[a-z_]+_kernel)I(\w+?)Li(\d+)E", name)
+            if t:
+                name = (f"{t.group(1)}/{t.group(2).lstrip('0123456789_')}"
+                        f"/{t.group(3)}")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name] = f"{m.group(1)} bytes spilled"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+    return out
 
 
 def load(source: Path) -> ctypes.CDLL:

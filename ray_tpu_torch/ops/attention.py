@@ -1,5 +1,5 @@
-"""Attention ops: the flash-attention forward as a hand-written Hopper kernel,
-with its plain PyTorch version beside it.
+"""Attention ops: flash attention forward and backward as hand-written Hopper
+kernels, with their plain PyTorch versions beside them.
 
 PyTorch counterpart of ``ray_tpu/ops/attention.py``:
 
@@ -10,7 +10,15 @@ PyTorch counterpart of ``ray_tpu/ops/attention.py``:
 - ``flash_attention_fwd``: (out, lse) on folded (B*H, S, D) tensors. On a
   CUDA tensor it launches ``csrc/flash_fwd.cu`` (the port of the TPU
   ``_fwd_kernel``) or raises; on a CPU tensor it runs ``_flash_plain``.
-- ``flash_attention``: (b, h, s, d) or (b, s, d), forward only.
+- ``_flash_bwd_plain`` (``_bwd_dq_plain`` + ``_bwd_dkv_plain``): the
+  blockwise backward, f32 inside, the plain version of the two backward
+  kernels. ``flash_attention_bwd``: (dq, dk, dv) on folded tensors; on a
+  CUDA tensor it launches ``csrc/flash_bwd.cu`` (the ports of the TPU
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) or raises; on a CPU tensor it
+  runs ``_flash_bwd_plain``.
+- ``_FlashAttention``: the ``torch.autograd.Function`` tying the two, the
+  counterpart of the JAX package's ``_flash_pallas_diff``.
+- ``flash_attention``: (b, h, s, d) or (b, s, d), differentiable.
 
 Masking: the causal mask is bottom-right aligned (query i sees key j when
 ``i + (k_len - q_len) >= j``). Rows with no live column give out = 0 and
@@ -29,12 +37,17 @@ import torch
 NEG_INF = -1e30
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+_BWD_SOURCE = _SOURCE.with_name("flash_bwd.cu")
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
 
-# launches of the CUDA kernel in this process (plain-version calls not counted)
+# launches of each CUDA kernel in this process (plain-version calls not
+# counted)
 flash_fwd_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def attention_reference(q, k, v, *, causal: bool = False,
@@ -109,6 +122,85 @@ def _flash_plain(q, k, v, *, causal: bool, sm_scale: float,
     return finalize_flash(m, l, acc, q.dtype), lse
 
 
+def _bwd_block(q, k, v, do, lse, delta, *, sm_scale: float, q0: int,
+               k0: int, offset: int, causal: bool):
+    """P and dS of one (q-block, k-block) pair, f32: P recomputed from lse
+    (a row with lse = +inf gets P = 0), dS = P * (dO V^T - delta)."""
+    s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * sm_scale
+    if causal:
+        qi = torch.arange(s.shape[-2], device=s.device)[:, None] + q0
+        ki = torch.arange(s.shape[-1], device=s.device)[None, :] + k0
+        s = torch.where(qi + offset >= ki, s, -math.inf)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("...qd,...kd->...qk", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def _bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float,
+                  block_q: int, block_k: int) -> torch.Tensor:
+    """dq = scale * sum_k dS K, q-block by q-block with the kernel's causal
+    skip of k-blocks no row of the q-block sees."""
+    q_len, k_len = q.shape[-2], k.shape[-2]
+    offset = k_len - q_len
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, q_len, block_q):
+        q1 = min(q0 + block_q, q_len)
+        k_end = min(k_len, q1 + offset) if causal else k_len
+        for k0 in range(0, max(k_end, 0), block_k):
+            k1 = k0 + block_k
+            _, ds = _bwd_block(
+                q[..., q0:q1, :], k[..., k0:k1, :], v[..., k0:k1, :],
+                do[..., q0:q1, :], lse[..., q0:q1], delta[..., q0:q1],
+                sm_scale=sm_scale, q0=q0, k0=k0, offset=offset, causal=causal)
+            dq[..., q0:q1, :] += torch.einsum("...qk,...kd->...qd", ds,
+                                              k[..., k0:k1, :].float())
+    return (dq * sm_scale).to(q.dtype)
+
+
+def _bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float,
+                   block_q: int, block_k: int):
+    """dv = sum_q P^T dO and dk = scale * sum_q dS^T Q, k-block by k-block,
+    starting at the first q-block with a row that sees the k-block."""
+    q_len, k_len = q.shape[-2], k.shape[-2]
+    offset = k_len - q_len
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for k0 in range(0, k_len, block_k):
+        k1 = min(k0 + block_k, k_len)
+        q_beg = max(0, k0 - offset) // block_q * block_q if causal else 0
+        for q0 in range(q_beg, q_len, block_q):
+            q1 = q0 + block_q
+            p, ds = _bwd_block(
+                q[..., q0:q1, :], k[..., k0:k1, :], v[..., k0:k1, :],
+                do[..., q0:q1, :], lse[..., q0:q1], delta[..., q0:q1],
+                sm_scale=sm_scale, q0=q0, k0=k0, offset=offset, causal=causal)
+            dv[..., k0:k1, :] += torch.einsum("...qk,...qd->...kd", p,
+                                              do[..., q0:q1, :].float())
+            dk[..., k0:k1, :] += torch.einsum("...qk,...qd->...kd", ds,
+                                              q[..., q0:q1, :].float())
+    return (dk * sm_scale).to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out, do) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, as the JAX package computes it
+    outside its kernels."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def _flash_bwd_plain(q, k, v, out, lse, do, *, causal: bool, sm_scale: float,
+                     block_q: int = 64, block_k: int = 64):
+    """(dq, dk, dv) of flash attention over (..., s, d), blockwise, f32
+    inside, outputs in the inputs' dtypes. The plain version of the two
+    backward kernels, and the CPU path; blocks default to the kernels'
+    64-row tiles."""
+    delta = _delta(out, do)
+    kw = dict(causal=causal, sm_scale=sm_scale, block_q=block_q,
+              block_k=block_k)
+    dq = _bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk, dv = _bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
 def _load_kernel() -> ctypes.CDLL:
     """The kernel's library, built by nvcc at the first call."""
     global _lib
@@ -125,29 +217,64 @@ def _load_kernel() -> ctypes.CDLL:
     return _lib
 
 
-def _check_kernel_inputs(q, k, v):
+def _load_bwd_kernel() -> ctypes.CDLL:
+    """The backward kernels' library, built by nvcc at the first call."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        from ray_tpu_torch.ops import _build
+
+        lib = _build.load(_BWD_SOURCE)
+        lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_bwd_dq.restype = lib.flash_bwd_dkv.restype = ctypes.c_int
+        lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def _check_kernel_inputs(q, k, v, kernel: str = "flash_fwd"):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
-            raise ValueError(f"flash_fwd kernel: {name} is on {t.device}, "
+            raise ValueError(f"{kernel} kernel: {name} is on {t.device}, "
                              "not a CUDA device")
         if t.dim() != 3:
-            raise ValueError(f"flash_fwd kernel: {name} must be (B*H, S, D), "
+            raise ValueError(f"{kernel} kernel: {name} must be (B*H, S, D), "
                              f"got shape {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"flash_fwd kernel: {name} must be contiguous")
+            raise ValueError(f"{kernel} kernel: {name} must be contiguous")
         if t.dtype != q.dtype or t.device != q.device:
-            raise ValueError("flash_fwd kernel: q, k, v must share one dtype "
+            raise ValueError(f"{kernel} kernel: q, k, v must share one dtype "
                              "and device")
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash_fwd kernel: unsupported dtype {q.dtype}")
+        raise ValueError(f"{kernel} kernel: unsupported dtype {q.dtype}")
     bh, q_len, d = q.shape
     if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel: head dim {d} not in {_HEAD_DIMS}")
+        raise ValueError(f"{kernel} kernel: head dim {d} not in {_HEAD_DIMS}")
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
-        raise ValueError(f"flash_fwd kernel: shapes q {tuple(q.shape)}, "
+        raise ValueError(f"{kernel} kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if bh < 1 or q_len < 1 or k.shape[1] < 1:
-        raise ValueError("flash_fwd kernel: empty input")
+        raise ValueError(f"{kernel} kernel: empty input")
+
+
+def _check_bwd_inputs(kernel, q, k, v, do, lse, delta):
+    """q, k, v as the forward takes them; dO like q; lse and delta
+    (B*H, Sq) f32; all contiguous on q's device."""
+    _check_kernel_inputs(q, k, v, kernel)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{kernel} kernel: dO {tuple(do.shape)} {do.dtype} "
+                         f"is not like q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32:
+            raise ValueError(f"{kernel} kernel: {name} must be (B*H, Sq) "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
+    for name, t in (("dO", do), ("lse", lse), ("delta", delta)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{kernel} kernel: {name} must be contiguous "
+                             f"on {q.device}")
 
 
 def _flash_kernel(q, k, v, *, causal: bool, sm_scale: float):
@@ -170,6 +297,56 @@ def _flash_kernel(q, k, v, *, causal: bool, sm_scale: float):
     return out, lse
 
 
+def _bwd_launch(kernel: str, q, k, v, do, lse, delta, grads, *,
+                causal: bool, sm_scale: float):
+    """One backward kernel's launch on PyTorch's current stream; raises on a
+    nonzero return."""
+    _check_bwd_inputs(kernel, q, k, v, do, lse, delta)
+    lib = _load_bwd_kernel()
+    bh, q_len, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, kernel)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads),
+            bh, q_len, k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal),
+            float(sm_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: "
+                           + lib.flash_bwd_error_string(err).decode())
+
+
+def _flash_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool,
+                         sm_scale: float) -> torch.Tensor:
+    global flash_bwd_dq_launches
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
+                causal=causal, sm_scale=sm_scale)
+    flash_bwd_dq_launches += 1
+    return dq
+
+
+def _flash_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool,
+                          sm_scale: float):
+    global flash_bwd_dkv_launches
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
+                causal=causal, sm_scale=sm_scale)
+    flash_bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _flash_bwd_kernel(q, k, v, out, lse, do, *, causal: bool,
+                      sm_scale: float):
+    """(dq, dk, dv) from the two sm_90a backward kernels; delta is one
+    PyTorch reduction before them."""
+    delta = _delta(out, do)
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    dq = _flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw)
+    dk, dv = _flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         sm_scale: Optional[float] = None):
     """(out, lse) for folded (B*H, S, D) inputs; lse is (B*H, Sq) f32.
@@ -184,30 +361,68 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
 
 
+def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
+                        sm_scale: Optional[float] = None):
+    """(dq, dk, dv) for folded (B*H, S, D) inputs, given the forward's out
+    and lse and the cotangent dO, each grad in its input's dtype.
+
+    CUDA tensors go through the two sm_90a kernels (or this raises); CPU
+    tensors go through the plain blockwise version."""
+    sm_scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if q.is_cuda:
+        return _flash_bwd_kernel(q, k, v, out, lse, do, causal=causal,
+                                 sm_scale=sm_scale)
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                sm_scale=sm_scale)
+    raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention on folded (B*H, S, D) tensors with the flash
+    backward: the forward saves q, k, v, out and lse; the backward
+    recomputes P blockwise from lse, so no attention matrix is kept. The
+    counterpart of the JAX package's ``_flash_pallas_diff``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None, block_k: int = 128,
                     impl: Optional[str] = None) -> torch.Tensor:
-    """Flash attention (forward) over (b, h, s, d) or (b, s, d) inputs.
+    """Differentiable flash attention over (b, h, s, d) or (b, s, d) inputs.
 
-    ``impl``: None picks the kernel for CUDA tensors and the plain path for
-    CPU tensors; "kernel" forces the kernel (a CPU tensor raises); "plain"
-    is the blockwise PyTorch version; "reference" the naive one.
+    ``impl``: None runs ``_FlashAttention`` (the forward and backward
+    kernels on CUDA tensors, their plain versions on CPU tensors);
+    "kernel" is the same but a CPU tensor raises; "plain" is the blockwise
+    PyTorch forward (k-blocks of ``block_k``) with autograd through its
+    ops; "reference" the naive version.
     """
     sm_scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    if impl is None:
-        impl = "kernel" if q.is_cuda else "plain"
     if impl == "reference":
         return attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
     if impl == "plain":
         return _flash_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                             block_k=block_k)[0]
-    if impl != "kernel":
+    if impl not in (None, "kernel"):
         raise ValueError(f"unknown flash_attention impl {impl!r}")
-    if not q.is_cuda:
+    if impl == "kernel" and not q.is_cuda:
         raise ValueError("flash_attention(impl='kernel') needs CUDA tensors, "
                          f"got {q.device}")
-    lead = q.shape[:-2]
+    # folded contiguous for the kernels; autograd carries the grads back to
+    # the caller's layout through the reshapes
     fold = lambda t: t.reshape(-1, t.shape[-2], t.shape[-1]).contiguous()
-    out, _ = _flash_kernel(fold(q), fold(k), fold(v), causal=causal,
-                           sm_scale=sm_scale)
-    return out.reshape(*lead, q.shape[-2], q.shape[-1])
+    out = _FlashAttention.apply(fold(q), fold(k), fold(v), causal, sm_scale)
+    return out.reshape(q.shape)

@@ -138,9 +138,10 @@ def test_config_attention_modes():
 def test_bf16_forward_keeps_f32_params():
     """dtype=bf16: parameters stay f32, activations and logits are bf16."""
     cfg = tgpt2.GPT2Config.small_test(attention="flash")
-    model = tgpt2.init_params(cfg, torch.Generator().manual_seed(1))
+    model = tgpt2.init_params(cfg, torch.Generator().manual_seed(1),
+                              device="cpu")
     assert all(p.dtype == torch.float32 for p in model.parameters())
-    batch = tgpt2.synthetic_batch(0, 2, 16, cfg.vocab_size)
+    batch = tgpt2.synthetic_batch(0, 2, 16, cfg.vocab_size, device="cpu")
     with torch.no_grad():
         logits = model(batch["input_ids"])
     assert logits.dtype == torch.bfloat16 and logits.shape == (2, 16, 512)
@@ -155,17 +156,17 @@ def test_bf16_forward_keeps_f32_params():
 
 def test_init_params_is_seeded():
     cfg = tgpt2.GPT2Config.small_test()
-    a = tgpt2.init_params(cfg, torch.Generator().manual_seed(5))
-    b = tgpt2.init_params(cfg, torch.Generator().manual_seed(5))
-    c = tgpt2.init_params(cfg, torch.Generator().manual_seed(6))
+    a = tgpt2.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    b = tgpt2.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    c = tgpt2.init_params(cfg, torch.Generator().manual_seed(6), device="cpu")
     wa, wb, wc = (m.h[0].attn.c_attn.weight.detach() for m in (a, b, c))
     assert torch.equal(wa, wb) and not torch.equal(wa, wc)
     assert abs(float(wa.std()) - 64 ** -0.5) < 0.02
 
 
 def test_synthetic_batch_shifts_labels():
-    b = tgpt2.synthetic_batch(2, 3, 10, 100)
+    b = tgpt2.synthetic_batch(2, 3, 10, 100, device="cpu")
     assert b["input_ids"].shape == b["labels"].shape == (3, 10)
     assert torch.equal(b["input_ids"][:, 1:], b["labels"][:, :-1])
-    assert torch.equal(b["input_ids"], tgpt2.synthetic_batch(2, 3, 10, 100)
-                       ["input_ids"])
+    assert torch.equal(b["input_ids"], tgpt2.synthetic_batch(
+        2, 3, 10, 100, device="cpu")["input_ids"])

@@ -485,7 +485,15 @@ def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run on it")
     from ray_tpu_torch.entry import entry
+    from ray_tpu_torch.models import gpt2 as tgpt2
 
+    cfg = tgpt2.GPT2Config.small_test()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgpt2.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgpt2.synthetic_batch(0, 2, 8, cfg.vocab_size)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgpt2.make_train_state(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         teng.LLMServer(real_model=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
