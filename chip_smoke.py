@@ -9,7 +9,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    TF32 is switched off for the checks.
 2. build: nvcc builds every kernel source of the ported paths
    (``ray_tpu_torch/ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``), all at
-   once, and reports each kernel's registers and spills from ptxas.
+   once, and reports each kernel's registers and spills from ptxas (the
+   backward's tensor-core ``*_mma_kernel`` instantiations for f16 and bf16,
+   its CUDA-core ones for f32), and lists every instantiation that spills.
 3. kernel vs plain: the ``flash_fwd`` sm_90a kernel against its plain
    PyTorch version (f32 math on the same rounded inputs) over dtypes
    {f32, bf16, f16} x head dims {16, 32, 64, 128} x B*H {12, 24} x causal
@@ -28,7 +30,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    causal) in f32. Tolerance: ``TOLS``, element by element, per tensor. One
    bf16 case is also held against torch.autograd through
    ``attention_reference`` in f32, at atol 1e-2 (delta takes the forward's
-   bf16-rounded output) and rtol 1.6e-2.
+   bf16-rounded output) and rtol 1.6e-2. Then the edges of the tensor-core
+   design (bf16 and f16 run on it, f32 on the CUDA cores; the library
+   reports which): bf16 and f16 x D {16, 32, 64, 128} x causal Sq {65, 127,
+   1000} x Sk 1024, where the diagonal crosses a 64-row tile off its
+   corner, and the training shape in bf16.
 5. serve in f32: GPT-2-124M at full width with random weights decodes 3
    prompts x 16 tokens through the kernel and through its plain version
    on the same weights; the tokens must be equal. ``entry()`` runs its
@@ -58,7 +64,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    and all three kernels at the training shape (B*H 192, S 1024, D 64,
    causal, bf16), each held to the bf16 ``TOLS`` element by element (the
    line prints the tolerance and the largest error's share of its limit),
-   with an estimate of attention's share of the step.
+   with an estimate of attention's share of the step. Each entry also
+   gives its design ("mma.sync" or "cuda-core f32") and its rate in
+   TFLOP/s (the live pairs' FLOPs over its time); the backward entries give
+   dq + dk/dv over SDPA's backward. Two launches of each backward kernel at
+   the training shape must give the same bits.
 
 The last two lines are the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -134,9 +144,12 @@ def phase_build():
     attn._load_bwd_kernel()
     ptxas = {src.name: _build.ptxas_summary(path)
              for (path, _), src in zip(built, sources)}
+    spills = sorted(name for kernels in ptxas.values()
+                    for name, summary in kernels.items()
+                    if not summary.endswith(" 0 bytes spilled"))
     emit("build", wall_s=wall,
          seconds={src.name: s for (_, s), src in zip(built, sources)},
-         ptxas=ptxas)
+         ptxas=ptxas, spills=spills)
 
 
 def _close(got, want, atol, rtol):
@@ -289,10 +302,19 @@ def phase_bwd_kernel_vs_plain():
     vs_autograd = [_close(g.float(), r, *autograd_tol)
                    for g, r in zip(got, ref_grads)]
     autograd_ok = all(h[0] for h in vs_autograd)
+    # the tensor-core design's edges: causal cross lengths whose diagonal
+    # crosses a 64-row tile off its corner, and the training shape in bf16
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in (16, 32, 64, 128):
+            for sq in (65, 127, 1000):
+                case(dtype, 12, d, sq, 1024, True)
+    case(torch.bfloat16, 192, 64, 1024, 1024, True)
     torch.cuda.synchronize()
+    design = {str(dt).split(".")[-1]: attn.bwd_design(dt) for dt in TOLS}
     names = ("dq", "dk", "dv", "dq_share", "dk_share", "dv_share")
     emit("bwd_kernel_vs_plain", kernels=["flash_bwd_dq", "flash_bwd_dkv"],
-         cases=n, bh=[12, "192 (f32, S 1024, D 64, causal)"],
+         cases=n, design=design,
+         bh=[12, "192 (f32 and bf16, S 1024, D 64, causal)"],
          max_err={k: dict(zip(names, v)) for k, v in worst.items()},
          tolerance={**{str(dt).split(".")[-1]: _tol_fields(dt)
                        for dt in TOLS}, "reason": TOL_REASON,
@@ -306,6 +328,9 @@ def phase_bwd_kernel_vs_plain():
     if failures or not autograd_ok:
         raise AssertionError(f"backward kernels disagree: {len(failures)} of "
                              f"{n} cases vs plain, autograd ok={autograd_ok}")
+    if design != {"float32": "cuda-core f32", "bfloat16": "mma.sync",
+                  "float16": "mma.sync"}:
+        raise AssertionError(f"backward design by dtype is {design}")
 
 
 @contextlib.contextmanager
@@ -587,12 +612,16 @@ def _live_pairs(bh, sq, sk, causal):
     return bh * sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq))
 
 
-def _entry(name, launches, err, ms, plain_ms, bound, library_ms, **extra):
+def _entry(name, launches, err, ms, plain_ms, bound, library_ms, flops,
+           design, **extra):
+    """One kernel's entry of the ``kernels`` line; ``flops`` are the live
+    pairs' FLOPs, which give its rate in TFLOP/s."""
     return {"name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": library_ms, **extra}
+            "library_ms": library_ms, "tflops": flops / (ms * 1e-3) / 1e12,
+            "design": design, **extra}
 
 
 def _serve_shape_entry(launches):
@@ -622,7 +651,8 @@ def _serve_shape_entry(launches):
         raise AssertionError(f"flash_fwd at the serving shape: error {err}, "
                              f"{share} of its limit")
     return _entry("flash_fwd", launches["flash_fwd"], err, ms, plain_ms,
-                  _bound(nbytes, flops), library_ms, path="serve",
+                  _bound(nbytes, flops), library_ms, flops, "cuda-core f32",
+                  path="serve",
                   tolerance=_tol_fields(torch.bfloat16),
                   err_share_of_limit=share, library="torch SDPA forward",
                   shape={"bh": bh, "s": s, "d": d, "causal": True,
@@ -660,7 +690,15 @@ def _train_shape_entries(launches, step_ms):
             for name, ps in pairs.items()}
     errs = {name: max(h[1] for h in hs) for name, hs in held.items()}
     shares = {name: max(h[2] for h in hs) for name, hs in held.items()}
-    del f32, pairs, ref_out, ref_dq, ref_dk, ref_dv, dq, dk, dv
+    # no atomics, a fixed order of sums: a second launch gives the same bits
+    again = {"flash_bwd_dq": (attn._flash_bwd_dq_kernel(
+                 q, k, v, do, lse, delta, **kw),),
+             "flash_bwd_dkv": attn._flash_bwd_dkv_kernel(
+                 q, k, v, do, lse, delta, **kw)}
+    first = {"flash_bwd_dq": (dq,), "flash_bwd_dkv": (dk, dv)}
+    same_bits = {name: all(torch.equal(a, b) for a, b in
+                           zip(first[name], again[name])) for name in first}
+    del f32, pairs, ref_out, ref_dq, ref_dk, ref_dv, dq, dk, dv, again, first
 
     ms = {"flash_fwd": _time_ms(lambda: attn.flash_attention_fwd(
               q, k, v, causal=True), 20),
@@ -690,9 +728,17 @@ def _train_shape_entries(launches, step_ms):
 
     live = _live_pairs(bh, s, s, True)
     stats = bh * s * 4   # one f32 per row: lse or delta
-    bounds = {"flash_fwd": _bound(4 * n * 2 + stats, 4 * live * d),
-              "flash_bwd_dq": _bound(5 * n * 2 + 2 * stats, 6 * live * d),
-              "flash_bwd_dkv": _bound(6 * n * 2 + 2 * stats, 8 * live * d)}
+    flops = {"flash_fwd": 4 * live * d, "flash_bwd_dq": 6 * live * d,
+             "flash_bwd_dkv": 8 * live * d}
+    nbytes = {"flash_fwd": 4 * n * 2 + stats,
+              "flash_bwd_dq": 5 * n * 2 + 2 * stats,
+              "flash_bwd_dkv": 6 * n * 2 + 2 * stats}
+    bounds = {name: _bound(nbytes[name], flops[name]) for name in KERNELS}
+    bwd_design = attn.bwd_design(torch.bfloat16)
+    bwd_vs_sdpa = (ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]) / sdpa_bwd
+    extra = {name: {"bwd_ms_vs_sdpa_bwd": bwd_vs_sdpa,
+                    "same_bits_twice": same}
+             for name, same in same_bits.items()}
     library = {"flash_fwd": (sdpa_fwd, "torch SDPA forward"),
                "flash_bwd_dq": (sdpa_bwd, "torch SDPA backward (dq, dk and "
                                 "dv together)"),
@@ -701,16 +747,17 @@ def _train_shape_entries(launches, step_ms):
     shape = {"bh": bh, "s": s, "d": d, "causal": True, "dtype": "bfloat16"}
     entries = [_entry(name, launches[name], errs[name],
                       ms[name], plain_ms[name], bounds[name],
-                      library[name][0], path="train",
-                      tolerance=_tol_fields(torch.bfloat16),
+                      library[name][0], flops[name],
+                      bwd_design if name in same_bits else "cuda-core f32",
+                      path="train", tolerance=_tol_fields(torch.bfloat16),
                       err_share_of_limit=shares[name],
-                      library=library[name][1], shape=shape)
+                      library=library[name][1], shape=shape,
+                      **extra.get(name, {}))
                for name in KERNELS]
     attn_ms = (sum(ms.values()) + delta_ms) * GPT2_124M["n_layer"]
     share = {"attention_ms_per_step": attn_ms, "step_ms": step_ms,
              "share": attn_ms / step_ms, "delta_ms": delta_ms,
-             "bwd_ms_vs_sdpa_bwd": (ms["flash_bwd_dq"]
-                                    + ms["flash_bwd_dkv"]) / sdpa_bwd,
+             "bwd_ms_vs_sdpa_bwd": bwd_vs_sdpa,
              "note": "estimate: kernel ms at this shape x 12 layers / step "
                      "ms, not a trace"}
     bad = [name for name, hs in held.items() if not all(h[0] for h in hs)]
@@ -718,6 +765,8 @@ def _train_shape_entries(launches, step_ms):
         raise AssertionError(f"at the training shape {bad} disagree with "
                              f"their plain versions: {errs}, {shares} of "
                              "their limits")
+    if not all(same_bits.values()):
+        raise AssertionError(f"a second launch gave other bits: {same_bits}")
     return entries, share
 
 

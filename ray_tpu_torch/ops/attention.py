@@ -14,8 +14,9 @@ PyTorch counterpart of ``ray_tpu/ops/attention.py``:
   blockwise backward, f32 inside, the plain version of the two backward
   kernels. ``flash_attention_bwd``: (dq, dk, dv) on folded tensors; on a
   CUDA tensor it launches ``csrc/flash_bwd.cu`` (the ports of the TPU
-  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) or raises; on a CPU tensor it
-  runs ``_flash_bwd_plain``.
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``: tensor-core kernels for f16
+  and bf16, CUDA-core kernels for f32) or raises; on a CPU tensor it runs
+  ``_flash_bwd_plain``.
 - ``_FlashAttention``: the ``torch.autograd.Function`` tying the two, the
   counterpart of the JAX package's ``_flash_pallas_diff``.
 - ``flash_attention``: (b, h, s, d) or (b, s, d), differentiable.
@@ -229,10 +230,20 @@ def _load_bwd_kernel() -> ctypes.CDLL:
         lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 \
             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         lib.flash_bwd_dq.restype = lib.flash_bwd_dkv.restype = ctypes.c_int
+        lib.flash_bwd_tensor_cores.argtypes = [ctypes.c_int]
+        lib.flash_bwd_tensor_cores.restype = ctypes.c_int
         lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
     return _bwd_lib
+
+
+def bwd_design(dtype: torch.dtype) -> str:
+    """The design the loaded backward library runs for ``dtype``:
+    "mma.sync" (tensor cores) or "cuda-core f32". Builds it if need be."""
+    lib = _load_bwd_kernel()
+    return ("mma.sync" if lib.flash_bwd_tensor_cores(_DTYPE_CODES[dtype])
+            else "cuda-core f32")
 
 
 def _check_kernel_inputs(q, k, v, kernel: str = "flash_fwd"):
@@ -262,11 +273,18 @@ def _check_kernel_inputs(q, k, v, kernel: str = "flash_fwd"):
 
 def _check_bwd_inputs(kernel, q, k, v, do, lse, delta):
     """q, k, v as the forward takes them; dO like q; lse and delta
-    (B*H, Sq) f32; all contiguous on q's device."""
+    (B*H, Sq) f32; all contiguous on q's device. In f16 and bf16 the
+    tensor-core kernels copy 16-byte rows, so q, k, v and dO must start on a
+    16-byte boundary."""
     _check_kernel_inputs(q, k, v, kernel)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"{kernel} kernel: dO {tuple(do.shape)} {do.dtype} "
                          f"is not like q {tuple(q.shape)} {q.dtype}")
+    if q.dtype != torch.float32:
+        for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{kernel} kernel: {name} must start on a "
+                                 "16-byte boundary")
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != q.shape[:2] or t.dtype != torch.float32:
             raise ValueError(f"{kernel} kernel: {name} must be (B*H, Sq) "

@@ -12,6 +12,8 @@ delta = rowsum(dO * O). Tolerances follow tests/test_ops.py: 2e-4 with a
 non-uniform cotangent (:165), 1e-4 for cross lengths (:194).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -126,6 +128,84 @@ def test_bwd_plain_matches_autograd_of_reference_f64(q_len, k_len, causal):
                                    rtol=1e-5)
 
 
+@pytest.mark.parametrize("block_k", [64, 32])
+@pytest.mark.parametrize("q_len,k_len,causal,ref", [
+    (65, 65, True, "scan"), (127, 127, False, "scan"),
+    (100, 130, True, "scan"), (64, 16, True, "pallas"),
+    (128, 64, True, "pallas"),
+])
+def test_bwd_plain_at_kernel_tiles_matches_jax(q_len, k_len, causal, ref,
+                                               block_k):
+    """``_flash_bwd_plain`` at the kernels' tiles (64 rows, and 64 or 32
+    key columns: from D 64 up the dq kernel takes S 32 columns at a time)
+    against ``jax.grad`` of the JAX function: ragged and cross lengths where the
+    diagonal crosses a tile off its corner against the scan path; causal
+    Sq > Sk, whose first rows see no key, against Pallas interpret (the
+    scan gives those rows mean(V), ROADMAP queue 3, item 5)."""
+    q, k, v, w = _inputs((1, 2, q_len, 16), (1, 2, k_len, 16),
+                         seed=q_len + k_len)
+    if ref == "pallas":
+        want = _jax_grads(q, k, v, w, causal=causal, impl="pallas_interpret",
+                          block_q=16, block_k=16)
+    else:
+        want = _jax_grads(q, k, v, w, causal=causal, impl="scan", block_k=32)
+    tq, tk, tv, tw = (torch.from_numpy(a)[0] for a in (q, k, v, w))
+    out, lse = tattn._flash_plain(tq, tk, tv, causal=causal,
+                                  sm_scale=16 ** -0.5)
+    got = tattn._flash_bwd_plain(tq, tk, tv, out, lse, tw, causal=causal,
+                                 sm_scale=16 ** -0.5, block_q=64,
+                                 block_k=block_k)
+    _assert_grads([g.numpy()[None] for g in got], want, 2e-4)
+
+
+def _shares_of_16_bit_limit(dtype, split, bh=2, s=256, d=32):
+    """The tensor-core backward's arithmetic emulated on the CPU for one
+    causal square input: S, dP and every sum in f32, P and dS rounded to
+    ``dtype`` before their products (one fragment, or hi + lo with
+    lo = dtype(x - hi) when ``split``), outputs rounded to ``dtype``. Returns
+    each of dq, dk, dv's largest |err| / (atol + rtol |ref|) against the
+    plain backward at chip_smoke.py's limits for the dtype."""
+    atol, rtol = {torch.bfloat16: (1e-3, 1.6e-2),
+                  torch.float16: (1e-3, 2e-3)}[dtype]
+    rng = np.random.default_rng(0)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, s, d),
+                                                        dtype=np.float32)
+                                    ).to(dtype).float() for _ in range(4))
+    scale = d ** -0.5
+    out, lse = tattn._flash_plain(q, k, v, causal=True, sm_scale=scale)
+    ref = tattn._flash_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                 sm_scale=scale)
+    live = torch.ones(s, s, dtype=torch.bool).tril()
+    p = torch.exp(torch.where(live, q @ k.transpose(-1, -2) * scale,
+                              -math.inf) - lse[..., None])
+    ds = p * (do @ v.transpose(-1, -2) - tattn._delta(out, do)[..., None])
+
+    def fragments(x):
+        hi = x.to(dtype).float()
+        return hi + (x - hi).to(dtype).float() if split else hi
+
+    p, ds = fragments(p), fragments(ds)
+    got = (ds @ k * scale, ds.transpose(-1, -2) @ q * scale,
+           p.transpose(-1, -2) @ do)
+    return [float(((g.to(dtype).float() - r).abs()
+                   / (atol + rtol * r.abs())).max()) for g, r in zip(got, ref)]
+
+
+@pytest.mark.parametrize("dtype,once_breaks_limit", [
+    (torch.bfloat16, True), (torch.float16, False)])
+def test_hi_lo_fragments_of_p_and_ds_keep_the_16_bit_limits(dtype,
+                                                            once_breaks_limit):
+    """Why csrc/flash_bwd.cu feeds P and dS to the tensor cores as hi + lo
+    fragments: rounded once to bf16, an element whose terms cancel misses
+    the bf16 limit; as hi + lo, every output is held to about its own
+    rounding (~0.22 of the limit, as with the CUDA-core kernels, whose
+    operands are f32)."""
+    once = _shares_of_16_bit_limit(dtype, split=False)
+    split = _shares_of_16_bit_limit(dtype, split=True)
+    assert (max(once) > 1.0) == once_breaks_limit, once
+    assert max(split) < 0.3, split
+
+
 def test_bwd_plain_keeps_input_dtypes_and_delta_in_f32():
     q, k, v, w = (torch.from_numpy(a).to(torch.bfloat16) for a in
                   _inputs((2, 24, 16), (2, 24, 16), seed=8))
@@ -202,8 +282,34 @@ def test_ptxas_summary_reads_registers_and_spills(tmp_path):
         "flash_bwd_dq_kernel/nv_bfloat16/64": "48 registers, 40 bytes spilled"}
 
 
-def test_launch_bounds_ab_needs_a_card():
-    from ray_tpu_torch.tools import launch_bounds_ab
+def test_ptxas_summary_reads_the_tensor_core_kernels(tmp_path):
+    """The tensor-core instantiations, mangled inside the source's anonymous
+    namespace, are listed under their own names beside the CUDA-core ones."""
+    from ray_tpu_torch.ops import _build
+
+    lib = tmp_path / "flash_bwd-4567.so"
+    entry = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{}"
+             "Li{}EEEvPKT_S4_S4_S4_PKfS6_PS2_iiif' for 'sm_90a'\n")
+    props = ("ptxas info    : Function properties for x\n"
+             "    {0} bytes stack frame, {0} bytes spill stores, {0} bytes "
+             "spill loads\nptxas info    : Used {1} registers, used 1 "
+             "barriers\n")
+    lib.with_suffix(".log").write_text(
+        entry.format("23flash_bwd_dq_mma_kernelI13__nv_bfloat16", 64)
+        + props.format(0, 163)
+        + entry.format("24flash_bwd_dkv_mma_kernelI6__half", 128)
+        + props.format(12, 255)
+        + entry.format("19flash_bwd_dq_kernelI13__nv_bfloat16", 64)
+        + props.format(0, 95))
+    assert _build.ptxas_summary(lib) == {
+        "flash_bwd_dq_mma_kernel/nv_bfloat16/64": "163 registers, 0 bytes "
+                                                  "spilled",
+        "flash_bwd_dkv_mma_kernel/half/128": "255 registers, 12 bytes spilled",
+        "flash_bwd_dq_kernel/nv_bfloat16/64": "95 registers, 0 bytes spilled"}
+
+
+def test_bwd_ab_needs_a_card():
+    from ray_tpu_torch.tools import bwd_ab
 
     assert not torch.cuda.is_available()
-    assert launch_bounds_ab.main([]) == 2
+    assert bwd_ab.main([]) == 2
