@@ -8,19 +8,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. device: ``nvidia-smi`` name and power limit, torch, CUDA and nvcc versions.
    TF32 is switched off for the checks.
 2. build: nvcc builds every kernel source of the ported paths
-   (``ray_tpu_torch/ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``), all at
-   once, and reports each kernel's registers and spills from ptxas (the
-   backward's tensor-core ``*_mma_kernel`` instantiations for f16 and bf16,
-   its CUDA-core ones for f32), and lists every instantiation that spills.
+   (``ray_tpu_torch/ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``, both
+   including ``mma_sm90.cuh``), all at once, and reports each kernel's
+   registers and spills from ptxas (the tensor-core ``*_mma_kernel``
+   instantiations for f16 and bf16, the CUDA-core ones for f32), and lists
+   every instantiation that spills.
 3. kernel vs plain: the ``flash_fwd`` sm_90a kernel against its plain
    PyTorch version (f32 math on the same rounded inputs) over dtypes
    {f32, bf16, f16} x head dims {16, 32, 64, 128} x B*H {12, 24} x causal
-   x lengths, plus cross lengths and rows with no live column.
-   Tolerance, element by element, |err| <= atol + rtol * |ref| (``TOLS``):
-   f32 1e-4, 1e-4 (sums in another order); bf16 1e-3, 1.6e-2 and f16 1e-3,
-   2e-3 (the kernel rounds each output once to 8 or 11 significant bits;
-   rtol is 4x that rounding). lse atol 1e-3 and +inf on exactly the same
-   rows.
+   x lengths, plus cross lengths and rows with no live column. Then the
+   edges of the tensor-core design (bf16 and f16 run on it, f32 on the CUDA
+   cores; the library reports which, and the phase asserts it): bf16 and
+   f16 x D {16, 32, 64, 128} x causal Sq {65, 127, 1000} x Sk 1024, where
+   the diagonal crosses a 64-row tile off its corner, and the training
+   shape (B*H 192, S 1024, D 64, causal) in bf16, launched twice: the two
+   launches must give the same bits. Tolerance, element by element,
+   |err| <= atol + rtol * |ref| (``TOLS``): f32 1e-4, 1e-4 (sums in another
+   order); bf16 1e-3, 1.6e-2 and f16 1e-3, 2e-3 (the kernel rounds each
+   output once to 8 or 11 significant bits; rtol is 4x that rounding). lse
+   atol 1e-3 and +inf on exactly the same rows, whose outputs must be 0.
 4. bwd kernel vs plain: dq from ``flash_bwd_dq`` and dk, dv from
    ``flash_bwd_dkv`` against the plain blockwise backward, both given the
    same q, k, v, a non-uniform dO and the forward kernel's out and lse, over
@@ -65,10 +71,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    causal, bf16), each held to the bf16 ``TOLS`` element by element (the
    line prints the tolerance and the largest error's share of its limit),
    with an estimate of attention's share of the step. Each entry also
-   gives its design ("mma.sync" or "cuda-core f32") and its rate in
-   TFLOP/s (the live pairs' FLOPs over its time); the backward entries give
-   dq + dk/dv over SDPA's backward. Two launches of each backward kernel at
-   the training shape must give the same bits.
+   gives its design as the library reports it ("mma.sync" or "cuda-core
+   f32") and its rate in TFLOP/s (the live pairs' FLOPs over its time); the
+   backward entries give dq + dk/dv over SDPA's backward. Beside SDPA's
+   forward time the forward entries give which SDPA backend ran (from the
+   profiler's op names), its kernels' device time, and SDPA's own output
+   error as a share of the bf16 limit against the same plain reference; the
+   backward entries name the backend of SDPA's backward. ``device_ms`` is
+   the kernel's own time from the profiler; ``ms`` (CUDA events around many
+   calls) also holds the host's work per call, the larger part at the
+   serving shape. Two launches of each backward kernel at the training
+   shape must give the same bits.
 
 The last two lines are the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -178,7 +191,8 @@ def _tol_fields(dtype):
 
 def _check_flash(q, k, v, causal):
     """Kernel vs plain on one input; returns (ok, out_err, lse_err,
-    out error's share of its limit)."""
+    out error's share of its limit). Rows with no live column must get
+    lse = +inf and out = 0 exactly."""
     from ray_tpu_torch.ops import attention as attn
 
     out, lse = attn.flash_attention_fwd(q, k, v, causal=causal)
@@ -187,10 +201,12 @@ def _check_flash(q, k, v, causal):
                                      sm_scale=q.shape[-1] ** -0.5)
     ok_out, out_err, share = _close(out.float(), ref, *TOLS[q.dtype])
     same_inf = bool(torch.equal(torch.isinf(lse), torch.isinf(ref_lse)))
+    dead_zero = not bool((out[torch.isinf(ref_lse)] != 0).any())
     fin = torch.isfinite(ref_lse)
     lse_err = float((lse[fin] - ref_lse[fin]).abs().max()) if fin.any() \
         else 0.0
-    return ok_out and same_inf and lse_err <= 1e-3, out_err, lse_err, share
+    return (ok_out and same_inf and dead_zero and lse_err <= 1e-3, out_err,
+            lse_err, share)
 
 
 def _flash_cases():
@@ -204,42 +220,71 @@ def _flash_cases():
 
 
 def phase_kernel_vs_plain():
+    from ray_tpu_torch.ops import attention as attn
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = _flash_cases()
-    worst = {}
+    worst = {}   # {group: {dtype: [out_err, lse_err, share]}}
     failures = []
     n = 0
+
+    def case(group, dtype, bh, d, sq, sk, causal):
+        nonlocal n
+        mk = lambda s: torch.randn((bh, s, d), generator=gen,
+                                   device=dev).to(dtype)
+        q, k, v = mk(sq), mk(sk), mk(sk)
+        ok, out_err, lse_err, share = _check_flash(q, k, v, causal)
+        n += 1
+        key = str(dtype).split(".")[-1]
+        w = worst.setdefault(group, {}).setdefault(key, [0.0, 0.0, 0.0])
+        worst[group][key] = [max(a, b) for a, b in
+                             zip(w, (out_err, lse_err, share))]
+        if not ok:
+            failures.append(dict(dtype=key, d=d, bh=bh, sq=sq, sk=sk,
+                                 causal=causal, out_err=out_err,
+                                 lse_err=lse_err, share=share))
+
     for dtype in TOLS:
         for d in (16, 32, 64, 128):
             for bh in (12, 24):
-                for sq, sk, causal in cases:
-                    mk = lambda s: torch.randn((bh, s, d), generator=gen,
-                                               device=dev).to(dtype)
-                    q, k, v = mk(sq), mk(sk), mk(sk)
-                    ok, out_err, lse_err, share = _check_flash(q, k, v,
-                                                               causal)
-                    n += 1
-                    key = str(dtype).split(".")[-1]
-                    w = worst.setdefault(key, [0.0, 0.0, 0.0])
-                    worst[key] = [max(a, b) for a, b in
-                                  zip(w, (out_err, lse_err, share))]
-                    if not ok:
-                        failures.append(dict(dtype=key, d=d, bh=bh, sq=sq,
-                                             sk=sk, causal=causal,
-                                             out_err=out_err,
-                                             lse_err=lse_err))
+                for sq, sk, causal in _flash_cases():
+                    case("lengths", dtype, bh, d, sq, sk, causal)
+    # the tensor-core design's edges: causal cross lengths whose diagonal
+    # crosses a 64-row tile off its corner, and the training shape in bf16
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in (16, 32, 64, 128):
+            for sq in (65, 127, 1000):
+                case("tensor_core_edges", dtype, 12, d, sq, 1024, True)
+    case("training_shape", torch.bfloat16, 192, 64, 1024, 1024, True)
+    # no atomics, a fixed order of sums: a second launch gives the same bits
+    q, k, v = (torch.randn((192, 1024, 64), generator=gen, device=dev
+                           ).to(torch.bfloat16) for _ in range(3))
+    first = attn.flash_attention_fwd(q, k, v, causal=True)
+    again = attn.flash_attention_fwd(q, k, v, causal=True)
+    same_bits = all(torch.equal(a, b) for a, b in zip(first, again))
+    del q, k, v, first, again
     torch.cuda.synchronize()
-    emit("kernel_vs_plain", kernel="flash_fwd", cases=n,
-         max_err={k: {"out": v[0], "lse": v[1], "out_share_of_limit": v[2]}
-                  for k, v in worst.items()},
+    design = {str(dt).split(".")[-1]: attn.fwd_design(dt) for dt in TOLS}
+    emit("kernel_vs_plain", kernel="flash_fwd", cases=n, design=design,
+         max_err={group: {k: {"out": v[0], "lse": v[1],
+                              "out_share_of_limit": v[2]}
+                          for k, v in by_dtype.items()}
+                  for group, by_dtype in worst.items()},
+         same_bits_twice=same_bits,
          tolerance={"out": {str(dt).split(".")[-1]: _tol_fields(dt)
                             for dt in TOLS}, "reason": TOL_REASON,
-                    "lse": "atol 1e-3, +inf on exactly the same rows"},
+                    "share": "largest |err| / (atol + rtol*|ref|), at most 1",
+                    "lse": "atol 1e-3, +inf on exactly the same rows, "
+                           "whose outputs are 0"},
          failures=failures[:10])
     if failures:
         raise AssertionError(f"flash_fwd disagrees with its plain version "
                              f"in {len(failures)} of {n} cases")
+    if not same_bits:
+        raise AssertionError("a second flash_fwd launch gave other bits")
+    if design != {"float32": "cuda-core f32", "bfloat16": "mma.sync",
+                  "float16": "mma.sync"}:
+        raise AssertionError(f"forward design by dtype is {design}")
 
 
 def _check_bwd(q, k, v, do, causal):
@@ -582,20 +627,6 @@ def phase_train_bf16():
     return launches, step_ms
 
 
-def _time_ms(fn, iters):
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the bf16 tensor-core peak."""
@@ -612,6 +643,34 @@ def _live_pairs(bh, sq, sk, causal):
     return bh * sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq))
 
 
+# the aten op through which SDPA dispatches to each of its backends
+SDPA_OPS = {"flash": "_scaled_dot_product_flash_attention",
+            "efficient": "_scaled_dot_product_efficient_attention",
+            "cuDNN": "_scaled_dot_product_cudnn_attention",
+            "math": "_scaled_dot_product_attention_math"}
+
+
+def _sdpa_error(out, ref):
+    """SDPA's own output against the plain reference ``ref``, at the bf16
+    limit: its max abs error and largest share of the limit."""
+    _, err, share = _close(out.detach().reshape(ref.shape).float(), ref,
+                           *TOLS[torch.bfloat16])
+    return {"library_max_abs_err": err, "library_err_share_of_limit": share}
+
+
+def _sdpa_profile(fn, suffix=""):
+    """From the profiler, over 20 calls of the SDPA call ``fn``: the backend
+    it dispatched to (the aten op, + ``suffix``), its CUDA kernels and their
+    device time per call."""
+    from ray_tpu_torch.tools import timing
+
+    ops, kernels, device_ms = timing.profile_calls(fn, 20)
+    ran = [b for b, op in SDPA_OPS.items() if any(op + suffix in x
+                                                   for x in ops)]
+    return {"library_backend": ",".join(ran) or "not measured",
+            "library_kernels": kernels[:6], "library_device_ms": device_ms}
+
+
 def _entry(name, launches, err, ms, plain_ms, bound, library_ms, flops,
            design, **extra):
     """One kernel's entry of the ``kernels`` line; ``flops`` are the live
@@ -625,8 +684,11 @@ def _entry(name, launches, err, ms, plain_ms, bound, library_ms, flops,
 
 
 def _serve_shape_entry(launches):
-    """flash_fwd at the serving shape of the 512-token prompt."""
+    """flash_fwd at the serving shape of the 512-token prompt: (entry, a
+    function giving the entry's profiler fields, to run after every
+    CUDA-event timing)."""
     from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.tools import timing
 
     bh, s, d = 12, 512, 64
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -637,12 +699,17 @@ def _serve_shape_entry(launches):
     ref, _ = attn._flash_plain(q.float(), k.float(), v.float(), causal=True,
                                sm_scale=scale)
     ok, err, share = _close(out.float(), ref, *TOLS[torch.bfloat16])
-    ms = _time_ms(lambda: attn.flash_attention_fwd(q, k, v, causal=True), 100)
-    plain_ms = _time_ms(lambda: attn._flash_plain(q, k, v, causal=True,
-                                                  sm_scale=scale), 20)
+    fwd = lambda: attn.flash_attention_fwd(q, k, v, causal=True)
+    ms = timing.time_ms(fwd, 100)
+    plain_ms = timing.time_ms(lambda: attn._flash_plain(
+        q, k, v, causal=True, sm_scale=scale), 20)
     q4, k4, v4 = (t[None] for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), 100)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True)
+    library_ms = timing.time_ms(sdpa, 100)
+    sdpa_error = _sdpa_error(sdpa(), ref)
+    profile = lambda: {"device_ms": timing.device_ms(fwd),
+                       **_sdpa_profile(sdpa)}
     # q, k, v read once, out (bf16) and lse (f32) written once; QK^T and PV
     # over the live pairs
     nbytes = 4 * bh * s * d * 2 + bh * s * 4
@@ -651,18 +718,23 @@ def _serve_shape_entry(launches):
         raise AssertionError(f"flash_fwd at the serving shape: error {err}, "
                              f"{share} of its limit")
     return _entry("flash_fwd", launches["flash_fwd"], err, ms, plain_ms,
-                  _bound(nbytes, flops), library_ms, flops, "cuda-core f32",
-                  path="serve",
+                  _bound(nbytes, flops), library_ms, flops,
+                  attn.fwd_design(torch.bfloat16), path="serve",
                   tolerance=_tol_fields(torch.bfloat16),
                   err_share_of_limit=share, library="torch SDPA forward",
+                  **sdpa_error,
                   shape={"bh": bh, "s": s, "d": d, "causal": True,
-                         "dtype": "bfloat16"})
+                         "dtype": "bfloat16"}), profile
 
 
 def _train_shape_entries(launches, step_ms):
     """flash_fwd, flash_bwd_dq and flash_bwd_dkv at the shape the training
-    path gives them (batch 16 x 12 heads, seq 1024, D 64, causal, bf16)."""
+    path gives them (batch 16 x 12 heads, seq 1024, D 64, causal, bf16):
+    (entries, attention's share of the step, a function giving each
+    entry's profiler fields by name, to run after every CUDA-event
+    timing)."""
     from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.tools import timing
 
     b, h, s, d = 16, 12, 1024, 64
     bh, n = b * h, b * h * s * d
@@ -698,33 +770,45 @@ def _train_shape_entries(launches, step_ms):
     first = {"flash_bwd_dq": (dq,), "flash_bwd_dkv": (dk, dv)}
     same_bits = {name: all(torch.equal(a, b) for a, b in
                            zip(first[name], again[name])) for name in first}
-    del f32, pairs, ref_out, ref_dq, ref_dk, ref_dv, dq, dk, dv, again, first
+    del f32, pairs, ref_dq, ref_dk, ref_dv, dq, dk, dv, again, first
 
-    ms = {"flash_fwd": _time_ms(lambda: attn.flash_attention_fwd(
+    ms = {"flash_fwd": timing.time_ms(lambda: attn.flash_attention_fwd(
               q, k, v, causal=True), 20),
-          "flash_bwd_dq": _time_ms(lambda: attn._flash_bwd_dq_kernel(
+          "flash_bwd_dq": timing.time_ms(lambda: attn._flash_bwd_dq_kernel(
               q, k, v, do, lse, delta, **kw), 10),
-          "flash_bwd_dkv": _time_ms(lambda: attn._flash_bwd_dkv_kernel(
+          "flash_bwd_dkv": timing.time_ms(lambda: attn._flash_bwd_dkv_kernel(
               q, k, v, do, lse, delta, **kw), 10)}
-    delta_ms = _time_ms(lambda: attn._delta(out, do), 20)
-    plain_ms = {"flash_fwd": _time_ms(lambda: attn._flash_plain(
+    delta_ms = timing.time_ms(lambda: attn._delta(out, do), 20)
+    plain_ms = {"flash_fwd": timing.time_ms(lambda: attn._flash_plain(
                     q, k, v, **kw), 3),
-                "flash_bwd_dq": _time_ms(lambda: attn._bwd_dq_plain(
+                "flash_bwd_dq": timing.time_ms(lambda: attn._bwd_dq_plain(
                     q, k, v, do, lse, delta, block_q=64, block_k=64,
                     **kw), 3),
-                "flash_bwd_dkv": _time_ms(lambda: attn._bwd_dkv_plain(
+                "flash_bwd_dkv": timing.time_ms(lambda: attn._bwd_dkv_plain(
                     q, k, v, do, lse, delta, block_q=64, block_k=64,
                     **kw), 3)}
     # yardsticks: SDPA's forward, and its backward as (forward + backward)
     # minus forward, both with grad enabled
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4 = (t.view(b, h, s, d).detach().requires_grad_()
                   for t in (q, k, v))
     do4 = do.view(b, h, s, d)
-    sdpa_fwd = _time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), 20)
-    sdpa_fwd_bwd = _time_ms(lambda: torch.autograd.grad(
-        sdpa(q4, k4, v4, is_causal=True), (q4, k4, v4), do4), 20)
-    sdpa_bwd = sdpa_fwd_bwd - sdpa_fwd
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True)
+    sdpa_fwd_bwd = lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
+    sdpa_error = _sdpa_error(sdpa(), ref_out)
+    del ref_out
+    sdpa_fwd_ms = timing.time_ms(sdpa, 20)
+    sdpa_bwd_ms = timing.time_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms
+
+    def profile():
+        fwd = _sdpa_profile(sdpa)
+        bwd = _sdpa_profile(sdpa_fwd_bwd, "_backward")
+        if None not in (fwd["library_device_ms"], bwd["library_device_ms"]):
+            bwd["library_device_ms"] -= fwd["library_device_ms"]
+        flash_ms = timing.device_ms(lambda: attn.flash_attention_fwd(
+            q, k, v, causal=True))
+        return {"flash_fwd": {"device_ms": flash_ms, **fwd},
+                "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
 
     live = _live_pairs(bh, s, s, True)
     stats = bh * s * 4   # one f32 per row: lse or delta
@@ -734,21 +818,23 @@ def _train_shape_entries(launches, step_ms):
               "flash_bwd_dq": 5 * n * 2 + 2 * stats,
               "flash_bwd_dkv": 6 * n * 2 + 2 * stats}
     bounds = {name: _bound(nbytes[name], flops[name]) for name in KERNELS}
-    bwd_design = attn.bwd_design(torch.bfloat16)
-    bwd_vs_sdpa = (ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]) / sdpa_bwd
+    design = {"flash_fwd": attn.fwd_design(torch.bfloat16),
+              "flash_bwd_dq": attn.bwd_design(torch.bfloat16),
+              "flash_bwd_dkv": attn.bwd_design(torch.bfloat16)}
+    bwd_vs_sdpa = (ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]) / sdpa_bwd_ms
     extra = {name: {"bwd_ms_vs_sdpa_bwd": bwd_vs_sdpa,
                     "same_bits_twice": same}
              for name, same in same_bits.items()}
-    library = {"flash_fwd": (sdpa_fwd, "torch SDPA forward"),
-               "flash_bwd_dq": (sdpa_bwd, "torch SDPA backward (dq, dk and "
-                                "dv together)"),
-               "flash_bwd_dkv": (sdpa_bwd, "torch SDPA backward (dq, dk and "
-                                 "dv together)")}
+    extra["flash_fwd"] = sdpa_error
+    library = {"flash_fwd": (sdpa_fwd_ms, "torch SDPA forward"),
+               "flash_bwd_dq": (sdpa_bwd_ms, "torch SDPA backward (dq, dk "
+                                "and dv together)"),
+               "flash_bwd_dkv": (sdpa_bwd_ms, "torch SDPA backward (dq, dk "
+                                 "and dv together)")}
     shape = {"bh": bh, "s": s, "d": d, "causal": True, "dtype": "bfloat16"}
     entries = [_entry(name, launches[name], errs[name],
                       ms[name], plain_ms[name], bounds[name],
-                      library[name][0], flops[name],
-                      bwd_design if name in same_bits else "cuda-core f32",
+                      library[name][0], flops[name], design[name],
                       path="train", tolerance=_tol_fields(torch.bfloat16),
                       err_share_of_limit=shares[name],
                       library=library[name][1], shape=shape,
@@ -767,14 +853,22 @@ def _train_shape_entries(launches, step_ms):
                              "their limits")
     if not all(same_bits.values()):
         raise AssertionError(f"a second launch gave other bits: {same_bits}")
-    return entries, share
+    return entries, share, profile
 
 
 def phase_kernels(serve_launches, train_launches, step_ms):
-    entries = [_serve_shape_entry(serve_launches)]
-    train_entries, share = _train_shape_entries(train_launches, step_ms)
+    serve_entry, serve_profile = _serve_shape_entry(serve_launches)
+    train_entries, share, train_profile = _train_shape_entries(
+        train_launches, step_ms)
+    # the profiler runs last: once it has run, every launch costs the host
+    # more, which would weigh on the CUDA-event times of many-launch calls
+    # such as SDPA's forward + backward
+    serve_entry.update(serve_profile())
+    fields = train_profile()
+    for e in train_entries:
+        e.update(fields[e["name"]])
     emit("attention_share", **share)
-    print(json.dumps({"kernels": entries + train_entries}), flush=True)
+    print(json.dumps({"kernels": [serve_entry] + train_entries}), flush=True)
 
 
 def main() -> int:

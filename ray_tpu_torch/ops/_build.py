@@ -3,9 +3,11 @@
 Each source under ``ops/csrc/`` compiles on its own into
 ``build/ray_tpu_torch/<name>-<hash>.so`` at the repository root, at the first
 launch of its kernel and never at import: the CPU-only test hosts import every
-module and have no ``nvcc``. The file name carries a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads the library
-already built. A file lock per source keeps concurrent processes from
+module and have no ``nvcc``. The file name carries a hash of the source, of
+every ``*.cuh`` header it can include (those beside it and those in
+``ops/csrc/``, both on nvcc's include path) and of the flags, so an edited
+source or header rebuilds and an unchanged one loads the library already
+built. A file lock per source keeps concurrent processes from
 building the same library twice while different sources build side by side;
 the finished library is moved into place atomically.
 """
@@ -23,6 +25,7 @@ from pathlib import Path
 from typing import Dict, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
+CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,10 +44,18 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
+def _include_dirs(source: Path) -> Tuple[Path, ...]:
+    """Where ``source``'s quoted includes resolve: its own directory, then
+    ``ops/csrc/`` (a variant copied elsewhere still finds the headers)."""
+    return tuple(dict.fromkeys((source.resolve().parent, CSRC)))
+
+
 def library_path(source: Path) -> Path:
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{key}.so"
+    h = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for d in _include_dirs(source):
+        for header in sorted(d.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> Tuple[Path, float]:
@@ -57,7 +68,8 @@ def build(source: Path) -> Tuple[Path, float]:
         if out.exists():
             return out, 0.0
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        includes = [f"-I{d}" for d in _include_dirs(source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *includes, "-o", str(tmp), str(source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

@@ -9,7 +9,8 @@ PyTorch counterpart of ``ray_tpu/ops/attention.py``:
   and the kernel is held against.
 - ``flash_attention_fwd``: (out, lse) on folded (B*H, S, D) tensors. On a
   CUDA tensor it launches ``csrc/flash_fwd.cu`` (the port of the TPU
-  ``_fwd_kernel``) or raises; on a CPU tensor it runs ``_flash_plain``.
+  ``_fwd_kernel``: a tensor-core kernel for f16 and bf16, a CUDA-core kernel
+  for f32) or raises; on a CPU tensor it runs ``_flash_plain``.
 - ``_flash_bwd_plain`` (``_bwd_dq_plain`` + ``_bwd_dkv_plain``): the
   blockwise backward, f32 inside, the plain version of the two backward
   kernels. ``flash_attention_bwd``: (dq, dk, dv) on folded tensors; on a
@@ -212,6 +213,8 @@ def _load_kernel() -> ctypes.CDLL:
         lib.flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
             + [ctypes.c_float, ctypes.c_void_p]
         lib.flash_fwd.restype = ctypes.c_int
+        lib.flash_fwd_tensor_cores.argtypes = [ctypes.c_int]
+        lib.flash_fwd_tensor_cores.restype = ctypes.c_int
         lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_fwd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -236,6 +239,14 @@ def _load_bwd_kernel() -> ctypes.CDLL:
         lib.flash_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
     return _bwd_lib
+
+
+def fwd_design(dtype: torch.dtype) -> str:
+    """The design the loaded forward library runs for ``dtype``:
+    "mma.sync" (tensor cores) or "cuda-core f32". Builds it if need be."""
+    lib = _load_kernel()
+    return ("mma.sync" if lib.flash_fwd_tensor_cores(_DTYPE_CODES[dtype])
+            else "cuda-core f32")
 
 
 def bwd_design(dtype: torch.dtype) -> str:
@@ -271,20 +282,24 @@ def _check_kernel_inputs(q, k, v, kernel: str = "flash_fwd"):
         raise ValueError(f"{kernel} kernel: empty input")
 
 
+def _check_aligned(kernel, **tensors):
+    """In f16 and bf16 the tensor-core kernels copy 16-byte rows, so their
+    inputs must start on a 16-byte boundary."""
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 and t.data_ptr() % 16:
+            raise ValueError(f"{kernel} kernel: {name} must start on a "
+                             "16-byte boundary")
+
+
 def _check_bwd_inputs(kernel, q, k, v, do, lse, delta):
     """q, k, v as the forward takes them; dO like q; lse and delta
-    (B*H, Sq) f32; all contiguous on q's device. In f16 and bf16 the
-    tensor-core kernels copy 16-byte rows, so q, k, v and dO must start on a
-    16-byte boundary."""
+    (B*H, Sq) f32; all contiguous on q's device; q, k, v and dO 16-byte
+    aligned in f16 and bf16."""
     _check_kernel_inputs(q, k, v, kernel)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"{kernel} kernel: dO {tuple(do.shape)} {do.dtype} "
                          f"is not like q {tuple(q.shape)} {q.dtype}")
-    if q.dtype != torch.float32:
-        for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{kernel} kernel: {name} must start on a "
-                                 "16-byte boundary")
+    _check_aligned(kernel, q=q, k=k, v=v, dO=do)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != q.shape[:2] or t.dtype != torch.float32:
             raise ValueError(f"{kernel} kernel: {name} must be (B*H, Sq) "
@@ -298,6 +313,7 @@ def _check_bwd_inputs(kernel, q, k, v, do, lse, delta):
 def _flash_kernel(q, k, v, *, causal: bool, sm_scale: float):
     global flash_fwd_launches
     _check_kernel_inputs(q, k, v)
+    _check_aligned("flash_fwd", q=q, k=k, v=v)
     lib = _load_kernel()
     bh, q_len, d = q.shape
     out = torch.empty_like(q)

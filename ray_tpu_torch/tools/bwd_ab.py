@@ -36,20 +36,6 @@ CUDA_CORES = "constexpr bool kTensorCores = false;"
 BF16_ATOL, BF16_RTOL = 1e-3, 1.6e-2
 
 
-def _time_ms(fn, iters=10):
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _libraries(attn, _build):
     """{design: bound library}, both built from the checkout's source."""
     text = attn._BWD_SOURCE.read_text()
@@ -91,6 +77,7 @@ def main(argv=None) -> int:
         return 2
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.tools.timing import time_ms
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -135,8 +122,8 @@ def main(argv=None) -> int:
         for name in ("cuda_cores", "tensor_cores", "tensor_cores",
                      "cuda_cores"):
             attn._bwd_lib = libs[name]
-            readings[name]["dq"].append(_time_ms(dq))
-            readings[name]["dkv"].append(_time_ms(dkv))
+            readings[name]["dq"].append(time_ms(dq, 10))
+            readings[name]["dkv"].append(time_ms(dkv, 10))
     median = {name: {kernel: statistics.median(ms) for kernel, ms in r.items()}
               for name, r in readings.items()}
     speedup = {kernel: median["cuda_cores"][kernel]

@@ -9,6 +9,8 @@ chip_smoke.py). Tolerance: atol = rtol = 2e-5, as tests/test_ops.py uses
 for the forward (f32 sums taken in another order).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -163,3 +165,87 @@ def test_plain_calls_do_not_count_as_launches():
     q = torch.zeros(2, 8, 16)
     tattn.flash_attention_fwd(q, q, q, causal=True)
     assert tattn.flash_fwd_launches == before
+
+
+def _fwd_share_of_16_bit_limit(dtype, split, bh=4, s=256, d=64):
+    """The tensor-core forward's arithmetic emulated on the CPU for one
+    causal square input: S in f32 on the kernel's 64-column k-tiles with the
+    running max, P = exp(S - m) in f32 and l summed from it, P rounded to
+    ``dtype`` before P V (one fragment, or hi + lo with lo = dtype(p - hi)
+    when ``split``), the f32 accumulator rescaled per tile, the output
+    rounded once to ``dtype``. Returns the output's largest
+    |err| / (atol + rtol |ref|) against the plain forward at chip_smoke.py's
+    limits for the dtype."""
+    atol, rtol = {torch.bfloat16: (1e-3, 1.6e-2),
+                  torch.float16: (1e-3, 2e-3)}[dtype]
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d),
+                                                    dtype=np.float32)
+                                ).to(dtype).float() for _ in range(3))
+    scale = d ** -0.5
+    ref, _ = tattn._flash_plain(q, k, v, causal=True, sm_scale=scale)
+    live = torch.ones(s, s, dtype=torch.bool).tril()
+    scores = torch.where(live, q @ k.transpose(-1, -2) * scale, -math.inf)
+    m = torch.full((bh, s), -math.inf)
+    l, acc = torch.zeros(bh, s), torch.zeros(bh, s, d)
+    for k0 in range(0, s, 64):
+        # every row sees key 0, so m is finite from the first tile on
+        m_new = torch.maximum(m, scores[..., k0:k0 + 64].amax(dim=-1))
+        p = torch.exp(scores[..., k0:k0 + 64] - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        hi = p.to(dtype).float()
+        p = hi + (p - hi).to(dtype).float() if split else hi
+        acc = acc * alpha[..., None] + p @ v[..., k0:k0 + 64, :]
+        m = m_new
+    out = (acc / l[..., None]).to(dtype).float()
+    return float(((out - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
+@pytest.mark.parametrize("dtype,split,breaks_limit", [
+    (torch.bfloat16, False, True), (torch.bfloat16, True, False),
+    (torch.float16, False, False)])
+def test_fwd_p_rounding_keeps_the_16_bit_limits(dtype, split, breaks_limit):
+    """Why csrc/flash_fwd.cu feeds bf16 P to P V as hi + lo fragments and
+    f16 P as one: rounded once to bf16 (8 bits), P misses the bf16 limit on
+    a causal input; as hi + lo, and in f16 rounded once (11 bits), the output
+    is held to about its own rounding (~0.2 of the limit)."""
+    share = _fwd_share_of_16_bit_limit(dtype, split)
+    assert (share > 1.0) == breaks_limit, share
+    if not breaks_limit:
+        assert share < 0.3, share
+
+
+def test_library_path_follows_the_included_headers(tmp_path):
+    """A shared header's edit must rebuild every source that includes it:
+    the library's name hashes the headers beside the source too."""
+    from ray_tpu_torch.ops import _build
+
+    src, header = tmp_path / "kernel.cu", tmp_path / "shared.cuh"
+    src.write_text('#include "shared.cuh"\n')
+    header.write_text("// one\n")
+    first = _build.library_path(src)
+    assert _build.library_path(src) == first
+    assert first.parent == _build.BUILD_DIR and first.name.startswith("kernel-")
+    header.write_text("// two\n")
+    assert _build.library_path(src) != first
+    assert _build.CSRC in _build._include_dirs(src)
+
+
+def test_16_bit_kernel_inputs_must_be_16_byte_aligned():
+    """The tensor-core kernels copy 16-byte rows: an f16 or bf16 input that
+    starts off a 16-byte boundary raises; f32 (the CUDA-core kernels) does
+    not care."""
+    for dtype in (torch.float16, torch.bfloat16):
+        t = torch.zeros(40, dtype=dtype)
+        tattn._check_aligned("flash_fwd", q=t[:16])
+        with pytest.raises(ValueError, match="k must start on a 16-byte"):
+            tattn._check_aligned("flash_fwd", q=t[:16], k=t[1:17])
+    tattn._check_aligned("flash_fwd", q=torch.zeros(40)[1:17])
+
+
+def test_fwd_ab_needs_a_card():
+    from ray_tpu_torch.tools import fwd_ab
+
+    assert not torch.cuda.is_available()
+    assert fwd_ab.main([]) == 2
