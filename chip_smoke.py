@@ -56,12 +56,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``loss_chunks=8``: one ``build_train_step`` step through the kernels and
    one through the plain attention (autograd through the blockwise
    forward), from the same weights. Loss within 1e-5 relative; every
-   parameter's gradient within 1e-4 relative norm.
+   parameter's gradient within 1e-4 relative norm (the worst and the median
+   leaf are printed).
 8. train at bf16 (the training path, ``bench.py``'s first flash
    configuration): GPT-2-124M, batch 16, seq 1024, ``loss_chunks=8``,
    AdamW, one fixed batch. Launch counts are zeroed, then 3 warm-up and 10
-   timed steps run. Checks: finite loss, lower at step 13 than at step 1,
-   and flash_fwd = flash_bwd_dq = flash_bwd_dkv = 12 x 13 launches. Prints
+   timed steps run (``train_bf16`` in ``ray_tpu_torch/tools/train_runs.py``,
+   which ``tools/fwd_ab.py`` times too). Checks: finite loss, lower at step
+   13 than at step 1, and flash_fwd = flash_bwd_dq = flash_bwd_dkv = 12 x 13
+   launches. Prints
    step ms, tokens/s, the losses and the peak memory.
 9. kernels: per kernel its launches on its path, error, time (CUDA events)
    at that path's shape, the plain version's time, a PyTorch call as a
@@ -92,7 +95,6 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
-import functools
 import json
 import math
 import subprocess
@@ -378,24 +380,10 @@ def phase_bwd_kernel_vs_plain():
         raise AssertionError(f"backward design by dtype is {design}")
 
 
-@contextlib.contextmanager
-def _plain_attention():
-    """Route the model's flash-attention calls to the kernel's plain
-    version (f32 math on the same inputs, same output dtype), so one model
-    with one set of weights runs either path."""
-    import ray_tpu_torch.ops as ops
-
-    kernel_path = ops.flash_attention
-    ops.flash_attention = functools.partial(kernel_path, impl="plain")
-    try:
-        yield
-    finally:
-        ops.flash_attention = kernel_path
-
-
 def phase_serve_f32():
     from ray_tpu_torch.entry import entry
     from ray_tpu_torch.serve.llm.model import GPT2LLM
+    from ray_tpu_torch.tools.train_runs import plain_attention
 
     llm = GPT2LLM(seed=0, attention="flash", dtype=torch.float32,
                   **GPT2_124M)
@@ -409,7 +397,7 @@ def phase_serve_f32():
         return toks[len(prompt):]
 
     kernel_toks = [greedy(p) for p in prompts]
-    with _plain_attention():
+    with plain_attention():
         plain_toks = [greedy(p) for p in prompts]
     equal = kernel_toks == plain_toks
     del llm
@@ -449,8 +437,8 @@ async def _serve_requests(server, prompts, repeat):
 
 
 def phase_serve_bf16():
-    from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.serve.llm.engine import LLMServer
+    from ray_tpu_torch.tools.train_runs import plain_attention
 
     server = LLMServer(real_model=True, kv_dim=768, page_tokens=16,
                        max_pages=512, max_running=8, prefix_cache_pages=128,
@@ -478,7 +466,7 @@ def phase_serve_bf16():
 
     seq = prompts[0] + streams[0][:-1]  # the input of the last forward
     kernel_logits = llm.logits(seq)[-1].float()
-    with _plain_attention():
+    with plain_attention():
         plain_logits = llm.logits(seq)[-1].float()
     logit_err = float((kernel_logits - plain_logits).abs().max())
     # one full forward of the 512-token prompt, host clock to sync: the
@@ -534,45 +522,37 @@ def _read_launches():
 
 def phase_train_f32():
     from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.tools import train_runs
 
     cfg = gpt2.GPT2Config.gpt2_124m(attention="flash", loss_chunks=8,
                                     dtype=torch.float32)
     batch = gpt2.synthetic_batch(4, 2, 256, cfg.vocab_size)
     runs = {}
     for path, ctx in (("kernel", contextlib.nullcontext),
-                      ("plain", _plain_attention)):
-        model, optimizer = gpt2.make_train_state(
-            cfg, torch.Generator().manual_seed(0))
-        step = gpt2.build_train_step(model, optimizer)
+                      ("plain", train_runs.plain_attention)):
         _zero_launches()
         with ctx():
-            _, _, loss = step(model, optimizer, batch)
-        torch.cuda.synchronize()
-        runs[path] = (float(loss), _read_launches(),
-                      {n: p.grad.detach().clone()
-                       for n, p in model.named_parameters()})
-        del model, optimizer, step
-        torch.cuda.empty_cache()
+            loss, grads = train_runs.step_grads(cfg, batch)
+        runs[path] = (loss, _read_launches(), grads)
     (kloss, klaunch, kgrads), (ploss, plaunch, pgrads) = \
         runs["kernel"], runs["plain"]
     loss_rel = abs(kloss - ploss) / abs(ploss)
-    grad_rel = {n: float((kgrads[n] - pgrads[n]).norm()
-                         / pgrads[n].norm().clamp_min(1e-30))
-                for n in pgrads}
-    worst = max(grad_rel, key=grad_rel.get)
+    grad = train_runs.grad_rel_errs(kgrads, pgrads)
     del runs, kgrads, pgrads
     torch.cuda.empty_cache()
     emit("train_f32", loss_kernel=kloss, loss_plain=ploss,
-         loss_rel_err=loss_rel, worst_grad_rel_err=grad_rel[worst],
-         worst_grad_leaf=worst, launches_kernel_path=klaunch,
+         loss_rel_err=loss_rel, worst_grad_rel_err=grad["worst"],
+         worst_grad_leaf=grad["worst_leaf"],
+         median_grad_rel_err=grad["median"], launches_kernel_path=klaunch,
          launches_plain_path=plaunch,
          tolerance={"loss": "1e-5 relative", "grads": "1e-4 relative norm "
                     "per parameter (f32 sums in another order)"})
     problems = []
     if not (math.isfinite(kloss) and loss_rel <= 1e-5):
         problems.append(f"loss {kloss} vs plain {ploss}")
-    if not grad_rel[worst] <= 1e-4:
-        problems.append(f"{worst} gradient off by {grad_rel[worst]}")
+    if not grad["worst"] <= 1e-4:
+        problems.append(f"{grad['worst_leaf']} gradient off by "
+                        f"{grad['worst']}")
     if klaunch != dict.fromkeys(KERNELS, 12) or any(plaunch.values()):
         problems.append(f"launches {klaunch} (kernel), {plaunch} (plain)")
     if problems:
@@ -580,46 +560,26 @@ def phase_train_f32():
 
 
 def phase_train_bf16():
-    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.tools import train_runs
 
-    batch_size, seq, warmup, timed = 16, 1024, 3, 10
-    cfg = gpt2.GPT2Config.gpt2_124m(attention="flash", loss_chunks=8)
-    model, optimizer = gpt2.make_train_state(
-        cfg, torch.Generator().manual_seed(0))
-    step = gpt2.build_train_step(model, optimizer)
-    batch = gpt2.synthetic_batch(1, batch_size, seq, cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses = []
     _zero_launches()
-    for _ in range(warmup):
-        model, optimizer, loss = step(model, optimizer, batch)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        model, optimizer, loss = step(model, optimizer, batch)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    losses, step_ms = train_runs.train_bf16()
     launches = _read_launches()
-    losses = [float(x) for x in losses]
-    step_ms = wall / timed * 1e3
     peak = torch.cuda.max_memory_allocated()
-    del model, optimizer, step, batch
-    torch.cuda.empty_cache()
-    n_steps = warmup + timed
+    n_steps = train_runs.WARMUP + train_runs.TIMED
     emit("train_bf16", config="gpt2_124m attention=flash loss_chunks=8 "
-         "remat=False bf16/f32-params AdamW", batch=batch_size, seq=seq,
-         steps=n_steps, step_ms=step_ms,
-         tokens_per_s=batch_size * seq * timed / wall, losses=losses,
-         launches=launches, peak_memory_bytes=peak)
+         "remat=False bf16/f32-params AdamW", batch=train_runs.BATCH,
+         seq=train_runs.SEQ, steps=n_steps, step_ms=step_ms,
+         tokens_per_s=train_runs.BATCH * train_runs.SEQ / step_ms * 1e3,
+         losses=losses, launches=launches, peak_memory_bytes=peak)
     problems = []
     if not all(math.isfinite(x) for x in losses):
         problems.append("non-finite loss")
     if not losses[-1] < losses[0]:
         problems.append(f"loss did not fall: {losses[0]} -> {losses[-1]}")
-    want = cfg.n_layer * n_steps
+    want = GPT2_124M["n_layer"] * n_steps
     if launches != dict.fromkeys(KERNELS, want):
         problems.append(f"launches {launches}, want {want} each")
     if problems:

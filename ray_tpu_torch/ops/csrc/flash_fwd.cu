@@ -217,28 +217,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------- tensor cores
 
-// Warps per CTA, each owning 16 query rows. 8 warps (a 128-row q tile, half
-// the K/V traffic per row) measured slower at D 64 than 4: at 135 registers
-// a thread only one such CTA fits on an SM. tools/fwd_ab.py builds a copy
-// with 8 to keep that measurement.
+// Four warps of 16 query rows (a 64-row q tile, MT threads). A 128-row tile
+// of 8 warps, half the K/V traffic per row, measured 1.28x slower at the
+// training shape and 1.37x at the serving shape (PERF.md): at 135 registers
+// a thread only one such CTA fits on an SM.
+constexpr int BM = 64;                  // query rows per CTA
+
 template <int D>
-__host__ __device__ constexpr int fwd_warps() {
-  return 4;  // warps per CTA (fwd_ab.py)
-}
-
-template <int D, int WARPS>
 constexpr int fwd_mma_smem_bytes() {  // the Q tile; K and V twice; in T
-  return (16 * WARPS + 4 * BK) * (D + 8) * 2;
+  return (BM + 4 * BK) * (D + 8) * 2;
 }
 
-template <typename T, int D, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS)
+template <typename T, int D>
+__global__ void __launch_bounds__(MT)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int sq, int sk, int causal,
                      float sm_scale) {
-  constexpr int NTHR = 32 * WARPS;
-  constexpr int BM = 16 * WARPS;        // query rows per CTA
   constexpr int RS = D + 8;             // shared row stride, elements
   constexpr int KV = BK * RS;           // one K or V tile
   constexpr bool KEEP = D <= 64;        // Q fragments in registers
@@ -264,11 +259,11 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal) kend = min(sk, min(q0 + BM, sq) + offset);
   const int n = kend > 0 ? (kend + BK - 1) / BK : 0;
 
-  load_tile<T, D, BM, NTHR>(qs, q + (size_t)bh * sq * D, q0, sq);
+  load_tile<T, D>(qs, q + (size_t)bh * sq * D, q0, sq);
   cp_commit();
   if (n > 0) {
-    load_tile<T, D, BK, NTHR>(kvs, kb, 0, sk);
-    load_tile<T, D, BK, NTHR>(kvs + KV, vb, 0, sk);
+    load_tile<T, D>(kvs, kb, 0, sk);
+    load_tile<T, D>(kvs + KV, vb, 0, sk);
   }
   cp_commit();
 
@@ -295,8 +290,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = it * BK;
     if (it + 1 < n) {
       T* nb = kvs + ((it + 1) & 1) * 2 * KV;
-      load_tile<T, D, BK, NTHR>(nb, kb, k0 + BK, sk);
-      load_tile<T, D, BK, NTHR>(nb + KV, vb, k0 + BK, sk);
+      load_tile<T, D>(nb, kb, k0 + BK, sk);
+      load_tile<T, D>(nb + KV, vb, k0 + BK, sk);
     }
     cp_commit();
     cp_wait<1>();     // tile `it` has landed
@@ -420,7 +415,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();    // every warp is done reading Q
   acc_to_tile<T, D>(qs, acc, 1.f);
   __syncthreads();
-  store_tile<T, D, BM, NTHR>(o + (size_t)bh * sq * D, qs, q0, sq);
+  store_tile<T, D>(o + (size_t)bh * sq * D, qs, q0, sq);
 }
 
 // ---------------------------------------------------------------- launchers
@@ -449,14 +444,13 @@ cudaError_t launch_cuda_cores(const Args& a) {
 
 template <typename T, int D>
 cudaError_t launch_mma(const Args& a) {
-  constexpr int W = fwd_warps<D>();
-  const int smem = fwd_mma_smem_bytes<D, W>();
+  const int smem = fwd_mma_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<T, D, W>,
+      flash_fwd_mma_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.bh, (a.sq + 16 * W - 1) / (16 * W));
-  flash_fwd_mma_kernel<T, D, W><<<grid, 32 * W, smem, a.stream>>>(
+  dim3 grid(a.bh, (a.sq + BM - 1) / BM);
+  flash_fwd_mma_kernel<T, D><<<grid, MT, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
       static_cast<float*>(a.lse), a.sq, a.sk, a.causal, a.sm_scale);

@@ -112,16 +112,16 @@ template <> __device__ __forceinline__ uint32_t rest2<__half>(float lo, float hi
                        hi - __half2float(__ushort_as_half(packed >> 16)));
 }
 
-// Rows [g0, g0 + ROWS) of a (rows, D) matrix into a [ROWS][D + 8] tile with
-// 16-byte cp.async by NTHR threads; rows past `rows` are zero.
-template <typename T, int D, int ROWS = 64, int NTHR = MT>
+// Rows [g0, g0 + 64) of a (rows, D) matrix into a [64][D + 8] tile with
+// 16-byte cp.async; rows past `rows` are zero.
+template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
                                           int g0, int rows) {
   constexpr int CH = D / 8;           // 16-byte chunks per row
-  static_assert(ROWS * CH % NTHR == 0, "whole chunks per thread");
+  static_assert(64 * CH % MT == 0, "whole chunks per thread");
 #pragma unroll
-  for (int j = 0; j < ROWS * CH / NTHR; ++j) {
-    const int i = threadIdx.x + j * NTHR;
+  for (int j = 0; j < 64 * CH / MT; ++j) {
+    const int i = threadIdx.x + j * MT;
     const int r = i / CH, c = (i % CH) * 8;
     const bool in = g0 + r < rows;
     cp_async16(smem_u32(dst + r * (D + 8) + c),
@@ -130,7 +130,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
 }
 
 // This warp's 16 x D accumulator, times `scale` and rounded to T, into its
-// 16 rows of a [rows][D + 8] tile.
+// 16 rows of a [64][D + 8] tile.
 template <typename T, int D>
 __device__ __forceinline__ void acc_to_tile(T* tile, const float (&acc)[D / 8][4],
                                             float scale) {
@@ -145,15 +145,15 @@ __device__ __forceinline__ void acc_to_tile(T* tile, const float (&acc)[D / 8][4
   }
 }
 
-// A [ROWS][D + 8] tile to rows [g0, g0 + ROWS) of a (rows, D) matrix in
-// 16-byte stores by NTHR threads, rows past `rows` not stored.
-template <typename T, int D, int ROWS = 64, int NTHR = MT>
+// A [64][D + 8] tile to rows [g0, g0 + 64) of a (rows, D) matrix in 16-byte
+// stores, rows past `rows` not stored.
+template <typename T, int D>
 __device__ __forceinline__ void store_tile(T* __restrict__ dst, const T* tile,
                                            int g0, int rows) {
   constexpr int CH = D / 8;
 #pragma unroll
-  for (int j = 0; j < ROWS * CH / NTHR; ++j) {
-    const int i = threadIdx.x + j * NTHR;
+  for (int j = 0; j < 64 * CH / MT; ++j) {
+    const int i = threadIdx.x + j * MT;
     const int r = i / CH, c = (i % CH) * 8;
     if (g0 + r < rows)
       *reinterpret_cast<uint4*>(dst + (size_t)(g0 + r) * D + c) =

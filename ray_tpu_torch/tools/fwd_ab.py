@@ -1,31 +1,33 @@
-"""A/B, on one card, of the designs of the forward kernel.
+"""A/B, on one card, of the two designs of the forward kernel.
 
     python3 -m ray_tpu_torch.tools.fwd_ab [--rounds 3]
 
 Builds ``ops/csrc/flash_fwd.cu`` as it stands (f16 and bf16 on the
-tensor-core kernel, 4 warps of 16 rows per CTA) and two copies, all at once:
-one whose marked design line (``constexpr bool kTensorCores``) sends f16 and
-bf16 to the CUDA-core kernel of the first port, and one whose marked tile
-line (in ``fwd_warps``) gives the tensor-core kernel 8 warps, a 128-row q
-tile, at D 64. It holds every build's output and lse against the plain
+tensor-core kernel) and a copy whose marked design line (``constexpr bool
+kTensorCores``) sends f16 and bf16 to the CUDA-core kernel of the first
+port, both at once. It holds each build's output and lse against the plain
 blockwise forward, at the bf16 tolerance of ``chip_smoke.py`` element by
 element and at lse atol 1e-3. Then, on one card, in the order old (CUDA
-cores), new, 128-row, 128-row, new, old in every round:
+cores), new, new, old in every round:
 
 1. ``flash_fwd`` of each build at the training shape of GPT-2-124M (B*H 192,
    S 1024, D 64, causal, bf16) and at the serving shape of its 512-token
    prompt (B*H 12, S 512), timed by CUDA events over 20 launches after 5
    warm-ups: the caller's view, host work included;
-2. end to end, the training path of ``chip_smoke.py`` phase 8 (GPT-2-124M,
-   batch 16 x 1024, bf16, AdamW, one fixed batch, the same seeds) for 3 + 10
-   steps with the old and the new design (old, new, new, old): each run's
-   step ms over the 10 timed steps and its 13 losses. The two designs round
-   P differently, so their loss curves may part after a few steps; each
-   repeats its own to the bit;
-3. the same launches as 1, timed by the profiler's kernel durations: the
-   card's view (at the serving shape the host takes longer per call than
-   the tensor-core kernel). This comes last because once the profiler has
-   run, each launch costs the host more.
+2. end to end, the training path of ``chip_smoke.py`` phase 8
+   (``tools/train_runs.py:train_bf16``) with the old and the new design
+   (old, new, new, old): each run's step ms over the 10 timed steps and its
+   13 losses. The two designs round P differently, so their loss curves may
+   part after a few steps; each repeats its own to the bit;
+3. one step's gradients of that model with each design against the same
+   step through the plain attention (bf16, batch 4 x 1024 of the same data
+   and weights): per design the worst and the median parameter's relative
+   error norm, and the designs' gradients against each other. Both designs
+   run the same backward kernels, so what parts them is the forward;
+4. the launches of 1, timed by the profiler's kernel durations: the card's
+   view (at the serving shape the host takes longer per call than the
+   tensor-core kernel). This comes last because once the profiler has run,
+   each launch costs the host more.
 
 Prints the card's ``nvidia-smi`` name and power limit, each build's ptxas
 registers and spills at D 64, and one JSON line with every reading, each
@@ -40,38 +42,30 @@ import json
 import statistics
 import subprocess
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 TENSOR_CORES = "constexpr bool kTensorCores = true;"
 CUDA_CORES = "constexpr bool kTensorCores = false;"
-WARPS_4 = "  return 4;  // warps per CTA (fwd_ab.py)"
-WARPS_8 = "  return D == 64 ? 8 : 4;  // warps per CTA (fwd_ab.py)"
 # chip_smoke.py's TOLS for bf16: |err| <= atol + rtol * |ref|
 BF16_ATOL, BF16_RTOL = 1e-3, 1.6e-2
 D = 64
 SHAPES = {"train": (192, 1024), "serve": (12, 512)}   # (B*H, S)
-ORDER = ("cuda_cores", "tensor_cores", "tensor_cores_128",
-         "tensor_cores_128", "tensor_cores", "cuda_cores")
+DESIGNS = ("cuda_cores", "tensor_cores")
+ORDER = ("cuda_cores", "tensor_cores", "tensor_cores", "cuda_cores")
+GRAD_BATCH = 4   # sequences of 1024 in the gradient check
 
 
 def _libraries(attn, _build):
-    """{build: bound library}, all built from the checkout's source."""
+    """{build: bound library}, both built from the checkout's source."""
     text = attn._SOURCE.read_text()
-    for line in (TENSOR_CORES, WARPS_4):
-        if line not in text:
-            raise RuntimeError(f"{attn._SOURCE.name} has no line {line!r}")
-    sources = {"tensor_cores": attn._SOURCE}
-    for name, variant in (("cuda_cores", text.replace(TENSOR_CORES,
-                                                      CUDA_CORES)),
-                          ("tensor_cores_128", text.replace(WARPS_4,
-                                                            WARPS_8))):
-        path = _build.BUILD_DIR / "variants" / f"flash_fwd_{name}.cu"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(variant)
-        sources[name] = path
+    if TENSOR_CORES not in text:
+        raise RuntimeError(f"{attn._SOURCE.name} has no line {TENSOR_CORES!r}")
+    variant = _build.BUILD_DIR / "variants" / "flash_fwd_cuda_cores.cu"
+    variant.parent.mkdir(parents=True, exist_ok=True)
+    variant.write_text(text.replace(TENSOR_CORES, CUDA_CORES))
+    sources = {"cuda_cores": variant, "tensor_cores": attn._SOURCE}
     with ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(_build.build, sources.values())))
     ptxas = {name: {k: v for k, v in _build.ptxas_summary(path).items()
@@ -98,28 +92,28 @@ def _median(xs):
     return None if None in xs else statistics.median(xs)
 
 
-def _train(warmup=3, timed=10):
-    """(losses, step ms over the timed steps) of chip_smoke.py's bf16
-    training path with whatever forward library is loaded."""
+def _grads_vs_plain(attn, libs, train_runs):
+    """One step's gradients with each design and through the plain
+    attention, from the same weights and data: {design: relative errors
+    against plain}, and the designs against each other."""
     from ray_tpu_torch.models import gpt2
 
-    cfg = gpt2.GPT2Config.gpt2_124m(attention="flash", loss_chunks=8)
-    model, optimizer = gpt2.make_train_state(
-        cfg, torch.Generator().manual_seed(0))
-    step = gpt2.build_train_step(model, optimizer)
-    batch = gpt2.synthetic_batch(1, 16, 1024, cfg.vocab_size)
-    losses = []
-    for i in range(warmup + timed):
-        if i == warmup:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        model, optimizer, loss = step(model, optimizer, batch)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / timed * 1e3
-    del model, optimizer, step, batch
+    cfg = train_runs.bf16_config()
+    batch = gpt2.synthetic_batch(1, GRAD_BATCH, train_runs.SEQ,
+                                 cfg.vocab_size)
+    with train_runs.plain_attention():
+        plain_loss, plain = train_runs.step_grads(cfg, batch)
+    out, grads = {"plain_loss": plain_loss}, {}
+    for name in DESIGNS:
+        attn._lib = libs[name]
+        loss, grads[name] = train_runs.step_grads(cfg, batch)
+        out[name] = {"loss": loss,
+                     **train_runs.grad_rel_errs(grads[name], plain)}
+    out["tensor_vs_cuda_cores"] = train_runs.grad_rel_errs(
+        grads["tensor_cores"], grads["cuda_cores"])
+    del plain, grads
     torch.cuda.empty_cache()
-    return [float(x) for x in losses], step_ms
+    return out
 
 
 def main(argv=None) -> int:
@@ -131,6 +125,7 @@ def main(argv=None) -> int:
         return 2
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.tools import train_runs
     from ray_tpu_torch.tools.timing import device_ms, time_ms
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -161,8 +156,7 @@ def main(argv=None) -> int:
     del ref, ref_lse
     agree = all(x["out"] <= 1.0 and x["lse_err"] <= 1e-3
                 for sh in shares.values() for x in sh.values())
-    expected = {"cuda_cores": "cuda-core f32", "tensor_cores": "mma.sync",
-                "tensor_cores_128": "mma.sync"}
+    expected = {"cuda_cores": "cuda-core f32", "tensor_cores": "mma.sync"}
 
     readings = {name: {shape: {"ms": [], "device_ms": []} for shape in SHAPES}
                 for name in libs}
@@ -179,29 +173,26 @@ def main(argv=None) -> int:
     # every host-clock and CUDA-event reading before the first profiler
     # session: once the profiler has run, each launch costs the host more
     rounds("ms", time_ms)
-    train = {name: {"step_ms": [], "losses": []}
-             for name in ("cuda_cores", "tensor_cores")}
-    for name in ("cuda_cores", "tensor_cores", "tensor_cores", "cuda_cores"):
+    train = {name: {"step_ms": [], "losses": []} for name in DESIGNS}
+    for name in ORDER:
         attn._lib = libs[name]
-        losses, step_ms = _train()
+        losses, step_ms = train_runs.train_bf16()
         train[name]["step_ms"].append(step_ms)
         train[name]["losses"].append(losses)
     repeats = all(r["losses"][0] == r["losses"][1] for r in train.values())
+    grads = _grads_vs_plain(attn, libs, train_runs)
     rounds("device_ms", device_ms)
     median = {name: {shape: {kind: _median(x) for kind, x in r.items()}
                      for shape, r in by_shape.items()}
               for name, by_shape in readings.items()}
 
-    def ratio(a, b, shape, kind):
-        x, y = median[a][shape][kind], median[b][shape][kind]
+    def ratio(shape, kind):
+        x = median["cuda_cores"][shape][kind]
+        y = median["tensor_cores"][shape][kind]
         return None if x is None or y is None else x / y
 
-    speedup = {shape: {kind: ratio("cuda_cores", "tensor_cores", shape, kind)
+    speedup = {shape: {kind: ratio(shape, kind)
                        for kind in ("ms", "device_ms")} for shape in SHAPES}
-    tile_128_vs_64 = {shape: {kind: ratio("tensor_cores_128", "tensor_cores",
-                                          shape, kind)
-                              for kind in ("ms", "device_ms")}
-                      for shape in SHAPES}
     print(json.dumps({"shapes": {s: {"bh": bh, "s": n, "d": D,
                                      "causal": True, "dtype": "bfloat16"}
                                  for s, (bh, n) in SHAPES.items()},
@@ -211,12 +202,15 @@ def main(argv=None) -> int:
                                     "lse_atol": 1e-3},
                       "readings": readings, "median": median,
                       "speedup_tensor_over_cuda_cores": speedup,
-                      "ms_128_row_tile_over_64": tile_128_vs_64,
                       "train_bf16": train,
                       "train_step_speedup": statistics.median(
                           train["cuda_cores"]["step_ms"])
                       / statistics.median(train["tensor_cores"]["step_ms"]),
                       "train_losses_repeat": repeats,
+                      "grads_vs_plain": {
+                          "step": 1, "batch": [GRAD_BATCH, train_runs.SEQ],
+                          "measure": "per parameter ||g - g_plain|| / "
+                                     "||g_plain||", **grads},
                       "nvidia_smi": smi}), flush=True)
     return 0 if agree and design == expected and repeats else 1
 

@@ -249,3 +249,29 @@ def test_fwd_ab_needs_a_card():
 
     assert not torch.cuda.is_available()
     assert fwd_ab.main([]) == 2
+
+
+def test_train_runs_plain_attention_and_grad_errors():
+    """The helpers chip_smoke.py and fwd_ab.py share: ``plain_attention``
+    routes the model's flash calls to impl="plain" and puts the kernel path
+    back even when its body raises; ``grad_rel_errs`` gives the worst and
+    the median leaf's relative error norm."""
+    import ray_tpu_torch.ops as ops
+    from ray_tpu_torch.tools import train_runs
+
+    kernel_path = ops.flash_attention
+    with pytest.raises(RuntimeError, match="inside"):
+        with train_runs.plain_attention():
+            assert ops.flash_attention.keywords == {"impl": "plain"}
+            assert ops.flash_attention.func is kernel_path
+            raise RuntimeError("inside")
+    assert ops.flash_attention is kernel_path
+
+    want = {"a": torch.tensor([3.0, 4.0]), "b": torch.tensor([1.0, 0.0]),
+            "c": torch.tensor([0.0, 2.0])}
+    got = {"a": torch.tensor([3.0, 4.5]), "b": torch.tensor([1.0, 0.0]),
+           "c": torch.tensor([0.0, 2.1])}
+    errs = train_runs.grad_rel_errs(got, want)
+    assert errs["worst_leaf"] == "a"
+    assert errs["worst"] == pytest.approx(0.1)
+    assert errs["median"] == pytest.approx(0.05)
