@@ -66,17 +66,45 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    13 than at step 1, and flash_fwd = flash_bwd_dq = flash_bwd_dkv = 12 x 13
    launches. Prints
    step ms, tokens/s, the losses and the peak memory.
-9. kernels: per kernel its launches on its path, error, time (CUDA events)
+9. llama_f32: Llama-2-7B width cut to 4 layers, f32, random weights from
+   seed 0 drawn on the card: the prefill's last logits and 8
+   teacher-forced decode steps (2 prompts of 128 tokens) through the f32
+   kernel against the plain attention, max |d| / max |ref| <= 1e-3
+   (``LLAMA_F32_LIMIT``), and the full causal pass's last logits against a
+   step-by-step decode from empty caches at the same limit; flash_fwd
+   launches 9 x 4.
+10. llama_serve Llama-2-7B, 11. llama_serve Llama-3-8B (GQA, 8 KV heads):
+   full depth and width, bf16 Dense and Embed weights, f32 norm scales.
+   ``generate`` over 4 prompts of 512 random tokens, 32 greedy new tokens,
+   caches of 544, launch counts zeroed just before and read just after:
+   flash_fwd exactly 32 per prefill + 32 per decode step x 31 = 1024, no
+   backward launch. Then its prefill and decode steps timed again (3
+   runs), and the prefill's last logits and every teacher-forced decode
+   step against the plain attention on the same weights and tokens:
+   ||d|| / ||ref|| <= 5e-2 and max |d| <= 0.25 (``LLAMA_BF16_LIMITS``,
+   argued before the first chip run). Prints prefill ms, decode ms per
+   token, tokens/s, peak memory and the decode step's share of its HBM
+   bound.
+12. llama_train: Llama-2-7B width cut to 2 layers, bf16 compute over f32
+   weights, batch 2 x 2048: one step's gradients through the kernels
+   against the plain attention's (worst parameter's relative error norm
+   <= 5e-2, ``LLAMA_GRAD_LIMIT``), then 5 AdamW steps on one batch: finite
+   losses, the last below the first, and each kernel launched exactly 2
+   x 5 times.
+13. kernels: per kernel its launches on its path, error, time (CUDA events)
    at that path's shape, the plain version's time, a PyTorch call as a
    yardstick (the port never calls it) and the least time the card could
-   take: flash_fwd at the serving shape (B*H 12, S 512, D 64, causal, bf16)
-   and all three kernels at the training shape (B*H 192, S 1024, D 64,
-   causal, bf16), each held to the bf16 ``TOLS`` element by element (the
-   line prints the tolerance and the largest error's share of its limit),
-   with an estimate of attention's share of the step. Each entry also
-   gives its design as the library reports it ("mma.sync" or "cuda-core
-   f32") and its rate in TFLOP/s (the live pairs' FLOPs over its time); the
-   backward entries give dq + dk/dv over SDPA's backward. Beside SDPA's
+   take: flash_fwd at GPT-2's serving shape (B*H 12, S 512, D 64, causal,
+   bf16) and at Llama's prefill (B*H 128, S 512, D 128) and decode (B*H
+   128, Sq 1, Sk 543, D 128) shapes, and all three kernels at GPT-2's
+   training shape (B*H 192, S 1024, D 64, causal, bf16) and Llama's (B*H
+   64, S 2048, D 128), each held to the bf16 ``TOLS`` element by element
+   (the line prints the tolerance and the largest error's share of its
+   limit), with an estimate of attention's share of each training step.
+   Each entry also gives its design as the library reports it
+   ("mma.sync" or "cuda-core f32") and its rate in TFLOP/s (the live
+   pairs' FLOPs over its time); the backward entries give dq + dk/dv over
+   SDPA's backward. Beside SDPA's
    forward time the forward entries give which SDPA backend ran (from the
    profiler's op names), its kernels' device time, and SDPA's own output
    error as a share of the bf16 limit against the same plain reference; the
@@ -86,7 +114,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    serving shape. Two launches of each backward kernel at the training
    shape must give the same bits.
 
-The last two lines are the ``nvidia-smi`` line and
+14. llama_trace: Llama-2-7B serving once more, after every events
+   timing, under the profiler: one prefill and 4 decode steps, each
+   call's device time (the sum of its kernels' durations, the matrix
+   products' part, flash_fwd's part, the rest, the largest kernels)
+   against phase 10's host clock of the same calls, and the device's idle
+   share.
+
+Then one line with each phase's seconds. The last two lines are the
+``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -587,6 +623,294 @@ def phase_train_bf16():
     return launches, step_ms
 
 
+# Llama. The f32 check cuts Llama-2-7B to 4 of its 32 layers; serving runs
+# Llama-2-7B and Llama-3-8B at full depth and width with bf16 weights;
+# training cuts Llama-2-7B to 2 layers (full depth needs ~108 GB of f32
+# weights, gradients and AdamW moments).
+LLAMA_F32_LAYERS = 4
+LLAMA_SERVE = {"batch": 4, "prompt": 512, "new_tokens": 32}
+LLAMA_TRAIN = {"layers": 2, "batch": 2, "seq": 2048, "steps": 5}
+# f32 kernel path vs plain path: max |kernel - plain| / max |plain| over
+# every compared logit (f32 sums in another order through 4 layers)
+LLAMA_F32_LIMIT = 1e-3
+# bf16 serving, kernel path vs plain path on the same weights and tokens,
+# over the prefill's last logits and every teacher-forced decode step.
+# Argued before the first chip run (PERF.md): the two paths round
+# attention's f32 result to bf16 at different points, and 32 bf16 layers
+# carry any such difference up to bf16's own noise floor. A CPU emulation
+# of a 32-layer, 256- and 512-wide Llama with random weights, perturbing
+# attention's f32 output by 1e-7 to 4e-3 relative before its bf16 cast,
+# gave ||d|| / ||ref|| 0.013-0.022 and max |d| 0.06-0.11 on logits of std
+# ~1: the limits are 2.3x those
+LLAMA_BF16_LIMITS = {"rel_norm": 5e-2, "max_abs_err": 0.25}
+# bf16 training, one step's gradients, kernel path vs plain path: the
+# relative error norm of the worst parameter; GPT-2-124M measured 0.0127
+# on the H100 (PERF.md) and a 2-layer CPU emulation of this one 0.0072
+LLAMA_GRAD_LIMIT = 5e-2
+
+
+# substrings of the names of cuBLAS's matrix-product kernels
+MATMUL_KERNELS = ("nvjet", "gemm", "gemv", "xmma", "cutlass", "cublas")
+
+
+def phase_llama_trace(serve):
+    """Llama-2-7B serving once more (phase 10's weights and prompts), last,
+    under the profiler: one prefill and 4 decode steps, the card's time per
+    call by kernel. The idle share is taken against phase 10's host-clock
+    times of the same calls (``serve``), read before any profiler session:
+    after one, every launch costs the host more, so the host clock of this
+    phase (``wall_ms_after_profiling``) reads high."""
+    import gc
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.tools import llama_runs, timing
+
+    cfg = llama.LlamaConfig.llama2_7b()
+    model = llama.init_params(cfg, _cuda_gen(20))
+    llama_runs.cast_for_serving(model, torch.bfloat16)
+    B, T = LLAMA_SERVE["batch"], LLAMA_SERVE["prompt"]
+    prompts = llama_runs.prompts(21, B, T, cfg.vocab_size, "cuda")
+    caches = llama.init_kv_caches(cfg, B, T + 8)
+    index = [T]
+
+    def prefill():
+        llama._prefill(model, prompts, caches)
+
+    def decode():
+        llama._decode_step(model, prompts[:, -1:], index[0], caches)
+        index[0] += 1
+
+    calls = {"prefill": (prefill, 1), "decode_step": (decode, 4)}
+    wall = {}
+    for name, (fn, n) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        index[0] = T
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) / n * 1e3
+    fields = {}
+    for name, (fn, n) in calls.items():
+        index[0] = T
+        kernels, per_call = timing.kernel_ms(fn, n)
+        device = sum(kernels.values())
+        matmul = sum(ms for k, ms in kernels.items()
+                     if any(m in k.lower() for m in MATMUL_KERNELS))
+        flash = sum(ms for k, ms in kernels.items() if "flash_fwd" in k)
+        fields[name] = {
+            "wall_ms": serve[name], "wall_ms_after_profiling": wall[name],
+            "device_ms": device, "idle_share": 1 - device / serve[name],
+            "kernels_per_call": per_call, "matmul_ms": matmul,
+            "flash_fwd_ms": flash, "other_ms": device - matmul - flash,
+            "top_kernels": [[k[:90], ms] for k, ms in
+                            list(kernels.items())[:8]]}
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("llama_trace", config="llama2_7b", batch=B, prompt=T,
+         note="the profiler's kernel durations against phase 10's host "
+              "clock of the same calls (its median prefill and decode step); "
+              "decode steps here at positions 512-515", **fields)
+
+
+def _cuda_gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def phase_llama_f32():
+    """Llama-2-7B width, 4 layers, f32: the prefill logits and 8
+    teacher-forced decode steps through the f32 kernel against the plain
+    attention; then the full causal pass against a step-by-step decode."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.tools import llama_runs
+
+    cfg = llama.LlamaConfig.llama2_7b(n_layer=LLAMA_F32_LAYERS,
+                                      dtype=torch.float32)
+    model = llama.init_params(cfg, _cuda_gen(0))
+    prompt_len, steps = 128, 8
+    prompts = llama_runs.prompts(10, 2, prompt_len, cfg.vocab_size, "cuda")
+    tokens = llama.generate(model, prompts, steps + 1)
+    _zero_launches()
+    kernel, plain = llama_runs.teacher_forced_logits_both(model, tokens,
+                                                          prompt_len)
+    launches = _read_launches()
+    errs = llama_runs.logit_errors(kernel, plain)
+    argmax_equal = all(torch.equal(x.argmax(-1), tokens[:, prompt_len + i])
+                       for i, x in enumerate(kernel))
+    full_pass = llama_runs.decode_equals_full_pass(
+        model, llama_runs.prompts(11, 2, 12, cfg.vocab_size, "cuda"))
+    del model, kernel, plain
+    torch.cuda.empty_cache()
+    want = {"flash_fwd": (steps + 1) * cfg.n_layer, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    emit("llama_f32", config="llama2_7b", layers=cfg.n_layer,
+         depth_cut=f"{cfg.n_layer} of 32 layers", batch=2,
+         prompt=prompt_len, decode_steps=steps, **errs,
+         share_of_limit=errs["max_rel_to_max"] / LLAMA_F32_LIMIT,
+         generate_tokens_equal_kernel_argmax=argmax_equal,
+         decode_vs_full_pass=full_pass,
+         decode_vs_full_pass_share=full_pass / LLAMA_F32_LIMIT,
+         launches=launches,
+         tolerance={"max_rel_to_max": LLAMA_F32_LIMIT,
+                    "reason": "f32 sums in another order through 4 layers",
+                    "decode_vs_full_pass": LLAMA_F32_LIMIT})
+    problems = []
+    if not errs["max_rel_to_max"] <= LLAMA_F32_LIMIT:
+        problems.append(f"kernel vs plain logits {errs}")
+    if not full_pass <= LLAMA_F32_LIMIT:
+        problems.append(f"decode vs full pass {full_pass}")
+    if launches != want:
+        problems.append(f"launches {launches}, want {want}")
+    if problems:
+        raise AssertionError("llama_f32: " + "; ".join(problems))
+
+
+def phase_llama_serve(name, cfg, seed):
+    """One model at full width, bf16 Dense and Embed weights, f32 norm
+    scales: ``generate`` over 4 prompts of 512 random tokens, 32 greedy new
+    tokens each, launch counts zeroed just before and read just after; its
+    prefill and decode steps timed again; the prefill's last logits and
+    every teacher-forced decode step against the plain attention."""
+    import gc
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.tools import llama_runs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, T, new = (LLAMA_SERVE[k] for k in ("batch", "prompt", "new_tokens"))
+    t0 = time.perf_counter()
+    model = llama.init_params(cfg, _cuda_gen(seed))
+    llama_runs.cast_for_serving(model, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompts = llama_runs.prompts(seed + 1, B, T, cfg.vocab_size, "cuda")
+    llama.generate(model, prompts[:, :16], 2)  # cuBLAS and the library warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    tokens, generate_s = llama_runs.time_generate(model, prompts, new)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = [llama_runs.time_steps(model, tokens, T) for _ in range(3)]
+    kernel, plain = llama_runs.teacher_forced_logits_both(model, tokens, T)
+    errs = llama_runs.logit_errors(kernel, plain)
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in kernel)
+    argmax_equal = sum(int((x.argmax(-1) == tokens[:, T + i]).sum())
+                       for i, x in enumerate(kernel)) / (B * new)
+    del model, kernel, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prefill_ms = sorted(x["prefill_ms"] for x in steps)
+    decode_ms = sorted(x["decode_ms_per_token"] for x in steps)
+    # bounds: a decode step reads every weight but the embedding table (B
+    # rows of it) and the live K and V of every layer; the prefill reads
+    # the same weights (B x T rows of the table) and does the matmuls' 2
+    # FLOPs per weight and token and attention's 4·d per live pair
+    d, kv_row = cfg.head_dim, cfg.n_kv_head * cfg.head_dim * 2
+    embed_bytes = cfg.vocab_size * cfg.n_embd * 2
+    step_weights = weight_bytes - embed_bytes + B * cfg.n_embd * 2
+    kv_reads = [2 * cfg.n_layer * B * (t + 1) * kv_row
+                for t in range(T, T + new - 1)]
+    decode_bound_weights = step_weights / HBM_BYTES_PER_S * 1e3
+    decode_bound = (step_weights + sum(kv_reads) / len(kv_reads)) \
+        / HBM_BYTES_PER_S * 1e3
+    matmul_params = (cfg.num_params() - cfg.vocab_size * cfg.n_embd
+                     - cfg.n_embd * (2 * cfg.n_layer + 1))
+    prefill_flops = (2 * matmul_params * B * T + 4 * d * cfg.n_layer
+                     * _live_pairs(B * cfg.n_head, T, T, True))
+    prefill_bytes = weight_bytes - embed_bytes + B * T * cfg.n_embd * 2
+    prefill_bound, prefill_bound_by = _bound(prefill_bytes, prefill_flops)
+    want = {"flash_fwd": cfg.n_layer * new, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    emit("llama_serve", config=name, layers=cfg.n_layer,
+         n_kv_head=cfg.n_kv_head, vocab=cfg.vocab_size, batch=B, prompt=T,
+         new_tokens=new, cache_len=T + new, weight_bytes=weight_bytes,
+         init_s=init_s, generate_s=generate_s,
+         tokens_per_s=B * new / generate_s,
+         prefill_ms=prefill_ms[1], prefill_ms_runs=prefill_ms,
+         prefill_bound_ms=prefill_bound, prefill_bound_by=prefill_bound_by,
+         decode_ms_per_token=decode_ms[1], decode_ms_runs=decode_ms,
+         decode_bound_ms_weights=decode_bound_weights,
+         decode_bound_ms=decode_bound,
+         decode_share_of_bound=decode_bound / decode_ms[1],
+         peak_memory_bytes=peak, launches=launches,
+         launches_per_generate=f"{cfg.n_layer} per prefill + {cfg.n_layer} "
+                               f"per decode step x {new - 1}",
+         generated_tokens_equal_kernel_argmax=argmax_equal, finite=finite,
+         **errs, share_of_limits={k: errs[k] / v
+                                  for k, v in LLAMA_BF16_LIMITS.items()},
+         tolerance={**LLAMA_BF16_LIMITS, "reason": "2.3x what a CPU "
+                    "emulation of bf16 noise over 32 layers gave (PERF.md)"})
+    problems = []
+    if launches != want:
+        problems.append(f"launches {launches}, want {want}")
+    if not finite:
+        problems.append("non-finite logits")
+    for k, limit in LLAMA_BF16_LIMITS.items():
+        if not errs[k] <= limit:
+            problems.append(f"kernel vs plain {k} {errs[k]} > {limit}")
+    if problems:
+        raise AssertionError(f"llama_serve {name}: " + "; ".join(problems))
+    return {"prefill_launches": cfg.n_layer,
+            "decode_launches": cfg.n_layer * (new - 1),
+            "prefill": prefill_ms[1], "decode_step": decode_ms[1]}
+
+
+def phase_llama_train():
+    """Llama-2-7B width, 2 layers, bf16 compute over f32 weights, batch 2 x
+    2048: one step's gradients through the kernels against the plain
+    attention's, then 5 AdamW steps on one batch with launch counts zeroed
+    just before and read just after."""
+    import gc
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.tools import llama_runs
+
+    c = LLAMA_TRAIN
+    cfg = llama.LlamaConfig.llama2_7b(n_layer=c["layers"])
+    batch = llama.synthetic_batch(12, c["batch"], c["seq"], cfg.vocab_size)
+    grads = llama_runs.grads_both(cfg, batch, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    run = llama_runs.train(cfg, batch, c["steps"], "cuda")
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, step_ms = run["losses"], run["step_ms"]
+    timed = sorted(step_ms[1:])
+    step_median = timed[len(timed) // 2]
+    emit("llama_train", config="llama2_7b", layers=cfg.n_layer,
+         depth_cut=f"{cfg.n_layer} of 32 layers", batch=c["batch"],
+         seq=c["seq"], steps=c["steps"], losses=losses, step_ms=step_ms,
+         step_ms_median_after_first=step_median,
+         tokens_per_s=c["batch"] * c["seq"] / step_median * 1e3,
+         launches=launches, peak_memory_bytes=peak, grads_vs_plain=grads,
+         tolerance={"worst_grad_rel_err": LLAMA_GRAD_LIMIT})
+    problems = []
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("non-finite loss")
+    if not losses[-1] < losses[0]:
+        problems.append(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    want = cfg.n_layer * c["steps"]
+    if launches != dict.fromkeys(KERNELS, want):
+        problems.append(f"launches {launches}, want {want} each")
+    if not grads["worst"] <= LLAMA_GRAD_LIMIT:
+        problems.append(f"{grads['worst_leaf']} gradient off by "
+                        f"{grads['worst']}")
+    if problems:
+        raise AssertionError("llama_train: " + "; ".join(problems))
+    return launches, step_median
+
+
 def _bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the bf16 tensor-core peak."""
@@ -643,17 +967,18 @@ def _entry(name, launches, err, ms, plain_ms, bound, library_ms, flops,
             "design": design, **extra}
 
 
-def _serve_shape_entry(launches):
-    """flash_fwd at the serving shape of the 512-token prompt: (entry, a
+def _fwd_shape_entry(launches, path, bh, sq, sk, d, seed):
+    """flash_fwd at one shape of a serving path (causal, bf16): (entry, a
     function giving the entry's profiler fields, to run after every
     CUDA-event timing)."""
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.tools import timing
 
-    bh, s, d = 12, 512, 64
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    if sq not in (1, sk):
+        raise ValueError(f"no SDPA yardstick for causal Sq {sq} < Sk {sk}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda"
-                           ).to(torch.bfloat16) for _ in range(3))
+                           ).to(torch.bfloat16) for s in (sq, sk, sk))
     scale = d ** -0.5
     out, _ = attn.flash_attention_fwd(q, k, v, causal=True)
     ref, _ = attn._flash_plain(q.float(), k.float(), v.float(), causal=True,
@@ -664,41 +989,44 @@ def _serve_shape_entry(launches):
     plain_ms = timing.time_ms(lambda: attn._flash_plain(
         q, k, v, causal=True, sm_scale=scale), 20)
     q4, k4, v4 = (t[None] for t in (q, k, v))
+    # SDPA's is_causal aligns top-left, the kernel bottom-right: the same
+    # mask at Sq = Sk; at Sq = 1 the one query sees every key, so SDPA runs
+    # without a mask there
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True)
+        q4, k4, v4, is_causal=sq == sk)
     library_ms = timing.time_ms(sdpa, 100)
     sdpa_error = _sdpa_error(sdpa(), ref)
     profile = lambda: {"device_ms": timing.device_ms(fwd),
                        **_sdpa_profile(sdpa)}
     # q, k, v read once, out (bf16) and lse (f32) written once; QK^T and PV
     # over the live pairs
-    nbytes = 4 * bh * s * d * 2 + bh * s * 4
-    flops = 4 * _live_pairs(bh, s, s, True) * d
+    nbytes = (2 * sq + 2 * sk) * bh * d * 2 + bh * sq * 4
+    flops = 4 * _live_pairs(bh, sq, sk, True) * d
     if not ok:
-        raise AssertionError(f"flash_fwd at the serving shape: error {err}, "
+        raise AssertionError(f"flash_fwd at the {path} shape: error {err}, "
                              f"{share} of its limit")
-    return _entry("flash_fwd", launches["flash_fwd"], err, ms, plain_ms,
+    return _entry("flash_fwd", launches, err, ms, plain_ms,
                   _bound(nbytes, flops), library_ms, flops,
-                  attn.fwd_design(torch.bfloat16), path="serve",
+                  attn.fwd_design(torch.bfloat16), path=path,
                   tolerance=_tol_fields(torch.bfloat16),
                   err_share_of_limit=share, library="torch SDPA forward",
                   **sdpa_error,
-                  shape={"bh": bh, "s": s, "d": d, "causal": True,
-                         "dtype": "bfloat16"}), profile
+                  shape={"bh": bh, "sq": sq, "sk": sk, "d": d,
+                         "causal": True, "dtype": "bfloat16"}), profile
 
 
-def _train_shape_entries(launches, step_ms):
-    """flash_fwd, flash_bwd_dq and flash_bwd_dkv at the shape the training
-    path gives them (batch 16 x 12 heads, seq 1024, D 64, causal, bf16):
-    (entries, attention's share of the step, a function giving each
-    entry's profiler fields by name, to run after every CUDA-event
-    timing)."""
+def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
+                         seed):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv at the shape a training
+    path gives them (batch b x h heads, seq s, head dim d, causal, bf16):
+    (entries, attention's share of the step of ``n_layer`` layers, a
+    function giving each entry's profiler fields by name, to run after
+    every CUDA-event timing)."""
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.tools import timing
 
-    b, h, s, d = 16, 12, 1024, 64
     bh, n = b * h, b * h * s * d
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda"
                                ).to(torch.bfloat16) for _ in range(4))
     scale = d ** -0.5
@@ -795,20 +1123,20 @@ def _train_shape_entries(launches, step_ms):
     entries = [_entry(name, launches[name], errs[name],
                       ms[name], plain_ms[name], bounds[name],
                       library[name][0], flops[name], design[name],
-                      path="train", tolerance=_tol_fields(torch.bfloat16),
+                      path=path, tolerance=_tol_fields(torch.bfloat16),
                       err_share_of_limit=shares[name],
                       library=library[name][1], shape=shape,
                       **extra.get(name, {}))
                for name in KERNELS]
-    attn_ms = (sum(ms.values()) + delta_ms) * GPT2_124M["n_layer"]
-    share = {"attention_ms_per_step": attn_ms, "step_ms": step_ms,
-             "share": attn_ms / step_ms, "delta_ms": delta_ms,
-             "bwd_ms_vs_sdpa_bwd": bwd_vs_sdpa,
-             "note": "estimate: kernel ms at this shape x 12 layers / step "
-                     "ms, not a trace"}
+    attn_ms = (sum(ms.values()) + delta_ms) * n_layer
+    share = {"path": path, "attention_ms_per_step": attn_ms,
+             "step_ms": step_ms, "share": attn_ms / step_ms,
+             "delta_ms": delta_ms, "bwd_ms_vs_sdpa_bwd": bwd_vs_sdpa,
+             "note": f"estimate: kernel ms at this shape x {n_layer} layers "
+                     "/ step ms, not a trace"}
     bad = [name for name, hs in held.items() if not all(h[0] for h in hs)]
     if bad:
-        raise AssertionError(f"at the training shape {bad} disagree with "
+        raise AssertionError(f"at the {path} shape {bad} disagree with "
                              f"their plain versions: {errs}, {shares} of "
                              "their limits")
     if not all(same_bits.values()):
@@ -816,19 +1144,44 @@ def _train_shape_entries(launches, step_ms):
     return entries, share, profile
 
 
-def phase_kernels(serve_launches, train_launches, step_ms):
-    serve_entry, serve_profile = _serve_shape_entry(serve_launches)
-    train_entries, share, train_profile = _train_shape_entries(
-        train_launches, step_ms)
+def phase_kernels(serve_launches, train_launches, step_ms, llama_serve,
+                  llama_train):
+    """Every kernel at the shapes of every path: GPT-2's serving and
+    training shapes, then Llama-2-7B's prefill, decode and training
+    shapes."""
+    entries, profiles, shares = [], [], []
+    for launches, path, bh, sq, sk, d, seed in (
+            (serve_launches["flash_fwd"], "serve", 12, 512, 512, 64, 3),
+            (llama_serve["prefill_launches"], "llama_prefill", 128,
+             LLAMA_SERVE["prompt"], LLAMA_SERVE["prompt"], 128, 6),
+            (llama_serve["decode_launches"], "llama_decode", 128, 1,
+             LLAMA_SERVE["prompt"] + LLAMA_SERVE["new_tokens"] - 1, 128, 7)):
+        entry, profile = _fwd_shape_entry(launches, path, bh, sq, sk, d, seed)
+        entries.append(entry)
+        profiles.append(lambda e=entry, p=profile: e.update(p()))
+    for launches, ms, path, b, h, s, d, n_layer, seed in (
+            (train_launches, step_ms, "train", 16, 12, 1024, 64, 12, 5),
+            (llama_train[0], llama_train[1], "llama_train",
+             LLAMA_TRAIN["batch"], 32, LLAMA_TRAIN["seq"], 128,
+             LLAMA_TRAIN["layers"], 8)):
+        group, share, profile = _train_shape_entries(
+            launches, ms, path, b, h, s, d, n_layer, seed)
+        entries += group
+        shares.append(share)
+
+        def update(group=group, profile=profile):
+            fields = profile()
+            for e in group:
+                e.update(fields[e["name"]])
+        profiles.append(update)
     # the profiler runs last: once it has run, every launch costs the host
     # more, which would weigh on the CUDA-event times of many-launch calls
     # such as SDPA's forward + backward
-    serve_entry.update(serve_profile())
-    fields = train_profile()
-    for e in train_entries:
-        e.update(fields[e["name"]])
-    emit("attention_share", **share)
-    print(json.dumps({"kernels": [serve_entry] + train_entries}), flush=True)
+    for update in profiles:
+        update()
+    for share in shares:
+        emit("attention_share", **share)
+    print(json.dumps({"kernels": entries}), flush=True)
 
 
 def main() -> int:
@@ -837,15 +1190,34 @@ def main() -> int:
         return 2
     import ray_tpu_torch.ops.attention  # noqa: F401  (fails outside the repo)
 
-    smi = phase_device()
-    phase_build()
-    phase_kernel_vs_plain()
-    phase_bwd_kernel_vs_plain()
-    phase_serve_f32()
-    serve_launches = phase_serve_bf16()
-    phase_train_f32()
-    train_launches, step_ms = phase_train_bf16()
-    phase_kernels(serve_launches, train_launches, step_ms)
+    seconds = {}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    timed("kernel_vs_plain", phase_kernel_vs_plain)
+    timed("bwd_kernel_vs_plain", phase_bwd_kernel_vs_plain)
+    timed("serve_f32", phase_serve_f32)
+    serve_launches = timed("serve_bf16", phase_serve_bf16)
+    timed("train_f32", phase_train_f32)
+    train_launches, step_ms = timed("train_bf16", phase_train_bf16)
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    timed("llama_f32", phase_llama_f32)
+    llama_serve = timed("llama_serve_7b", phase_llama_serve, "llama2_7b",
+                        LlamaConfig.llama2_7b(), 20)
+    timed("llama_serve_8b", phase_llama_serve, "llama3_8b",
+          LlamaConfig.llama3_8b(), 30)
+    llama_train = timed("llama_train", phase_llama_train)
+    timed("kernels", phase_kernels, serve_launches, train_launches, step_ms,
+          llama_serve, llama_train)
+    timed("llama_trace", phase_llama_trace, llama_serve)
+    emit("seconds", **seconds)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

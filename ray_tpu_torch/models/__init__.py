@@ -1,7 +1,12 @@
 """ray_tpu_torch.models — model families ported to PyTorch."""
 
-from ray_tpu_torch.models import gpt2
-from ray_tpu_torch.models.convert import opt_state_from_jax, params_from_jax
+from ray_tpu_torch.models import gpt2, llama
+from ray_tpu_torch.models.convert import (
+    llama_opt_state_from_jax,
+    llama_params_from_jax,
+    opt_state_from_jax,
+    params_from_jax,
+)
 from ray_tpu_torch.models.gpt2 import (
     build_train_step,
     chunked_xent_tied,
@@ -14,6 +19,9 @@ __all__ = [
     "build_train_step",
     "chunked_xent_tied",
     "gpt2",
+    "llama",
+    "llama_opt_state_from_jax",
+    "llama_params_from_jax",
     "loss_fn",
     "make_optimizer",
     "make_train_state",

@@ -1,5 +1,5 @@
-"""Weight bridge: the Flax GPT-2 parameter tree to the torch ``state_dict``,
-and optax's AdamW state to torch's.
+"""Weight bridge: the Flax GPT-2 and Llama parameter trees to the torch
+``state_dict``s, and optax's AdamW state to torch's.
 
 The trees hold numpy arrays (``jax.tree.map(np.asarray, tree)`` on the JAX
 side), so this module needs neither JAX nor the JAX package. Dense
@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 _DENSE = ("attn/c_attn", "attn/c_proj", "mlp/c_fc", "mlp/c_proj")
+_LLAMA_DENSE = ("attn/q_proj", "attn/k_proj", "attn/v_proj", "attn/o_proj",
+                "mlp/gate_proj", "mlp/up_proj", "mlp/down_proj")
 
 
 def _t(x) -> torch.Tensor:
@@ -51,6 +53,26 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def llama_params_from_jax(tree: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """State dict for ``ray_tpu_torch.models.llama.Llama`` from a Flax tree
+    of numpy arrays; raises KeyError on a missing leaf."""
+    n_layer = sum(1 for k in tree if k.startswith("h_"))
+    sd: Dict[str, torch.Tensor] = {
+        "embed.weight": _t(tree["embed"]["embedding"]),
+        "norm.weight": _t(tree["norm"]["scale"]),
+        "lm_head.weight": _t(tree["lm_head"]["kernel"]).T.contiguous(),
+    }
+    for i in range(n_layer):
+        blk = tree[f"h_{i}"]
+        for norm in ("input_norm", "post_attn_norm"):
+            sd[f"h.{i}.{norm}.weight"] = _t(blk[norm]["scale"])
+        for path in _LLAMA_DENSE:
+            name = f"h.{i}." + path.replace("/", ".")
+            sd[f"{name}.weight"] = _t(_get(blk, path)["kernel"]).T.contiguous()
+    return sd
+
+
 def opt_state_from_jax(opt_state_tree, model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer) -> None:
     """Load optax's adamw state into ``optimizer`` (a ``torch.optim.AdamW``
@@ -62,13 +84,24 @@ def opt_state_from_jax(opt_state_tree, model: torch.nn.Module,
     ``exp_avg_sq``, with the moments laid out as ``params_from_jax`` lays
     out the parameters (Dense kernels transposed).
     Raises ValueError without an Adam state and KeyError on a missing leaf."""
+    _load_adam(opt_state_tree, model, optimizer, params_from_jax)
+
+
+def llama_opt_state_from_jax(opt_state_tree, model: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer) -> None:
+    """``opt_state_from_jax`` for a Llama: the moments laid out as
+    ``llama_params_from_jax`` lays out the parameters."""
+    _load_adam(opt_state_tree, model, optimizer, llama_params_from_jax)
+
+
+def _load_adam(opt_state_tree, model, optimizer, convert) -> None:
     adam = next((s for s in opt_state_tree
                  if all(hasattr(s, f) for f in ("count", "mu", "nu"))), None)
     if adam is None:
         raise ValueError("no optax ScaleByAdamState (count, mu, nu) in the "
                          "optimizer state")
     count = float(np.asarray(adam.count))
-    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    mu, nu = convert(adam.mu), convert(adam.nu)
     index = {id(p): name for name, p in model.named_parameters()}
     # a state dict numbers the parameters in param-group order; loading it
     # moves the moments to each parameter's device and dtype

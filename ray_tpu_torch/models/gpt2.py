@@ -83,16 +83,18 @@ class GPT2Config:
 
 
 class Dense(nn.Linear):
-    """Flax ``nn.Dense(dtype=...)``: f32 parameters, product in ``dtype``."""
+    """Flax ``nn.Dense(dtype=..., use_bias=...)``: f32 parameters, product
+    in ``dtype``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype):
-        super().__init__(in_features, out_features)
+                 dtype: torch.dtype, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -331,6 +333,15 @@ def build_train_step(model: GPT2, optimizer: torch.optim.Optimizer,
         raise NotImplementedError(
             "build_train_step(mesh=..., ingraph_psum=...): data parallel over "
             "NCCL is not ported yet (ROADMAP queue 1, item 3)")
+    return in_place_step(model, optimizer, loss_fn, donate)
+
+
+def in_place_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                  loss, donate: bool = True):
+    """``step(model, optimizer, batch) -> (model, optimizer, loss)``: one
+    optimizer step on the gradients of ``loss(model, batch)``, updating
+    ``model`` and ``optimizer`` in place; raises if handed another model
+    or optimizer, and on ``donate=False``."""
     if not donate:
         raise ValueError("build_train_step(donate=False) is not offered: "
                          "the step updates the model in place")
@@ -340,10 +351,10 @@ def build_train_step(model: GPT2, optimizer: torch.optim.Optimizer,
             raise ValueError("this step was built for another model and "
                              "optimizer")
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
-        loss.backward()
+        value = loss(model, batch)
+        value.backward()
         optimizer.step()
-        return model, optimizer, loss.detach()
+        return model, optimizer, value.detach()
 
     return step
 

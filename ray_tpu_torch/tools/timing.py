@@ -14,7 +14,7 @@ slower by events, while a single-kernel call does not move (PERF.md).
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,12 +35,9 @@ def time_ms(fn: Callable[[], object], iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_calls(fn: Callable[[], object], iters: int = 1
-                  ) -> Tuple[List[str], List[str], Optional[float]]:
-    """Run ``fn`` ``iters`` times under ``torch.profiler`` (CPU and CUDA
-    activity). Returns the names of the host ops, the names of the CUDA
-    kernels, and the ms per call the card spent in those kernels (None when
-    the profiler saw no kernel)."""
+def _profiled(fn: Callable[[], object], iters: int):
+    """(all profiler events, the CUDA kernels' events) of ``iters`` calls of
+    ``fn`` after one call outside the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -51,13 +48,36 @@ def profile_calls(fn: Callable[[], object], iters: int = 1
             fn()
         torch.cuda.synchronize()
     events = prof.events()
-    cuda = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return events, [e for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_calls(fn: Callable[[], object], iters: int = 1
+                  ) -> Tuple[List[str], List[str], Optional[float]]:
+    """Run ``fn`` ``iters`` times under ``torch.profiler`` (CPU and CUDA
+    activity). Returns the names of the host ops, the names of the CUDA
+    kernels, and the ms per call the card spent in those kernels (None when
+    the profiler saw no kernel)."""
+    events, cuda = _profiled(fn, iters)
     ops = sorted({e.name for e in events
                   if e.device_type != torch.autograd.DeviceType.CUDA})
     ms = (sum(e.time_range.elapsed_us() for e in cuda) / iters / 1e3
           if cuda else None)
     return ops, sorted({e.name for e in cuda}), ms
+
+
+def kernel_ms(fn: Callable[[], object], iters: int = 1
+              ) -> Tuple[Dict[str, float], float]:
+    """({CUDA kernel name: ms per call the card spends in it}, largest
+    first; kernels launched per call) over ``iters`` calls of ``fn`` under
+    ``torch.profiler``."""
+    _, cuda = _profiled(fn, iters)
+    total: Dict[str, float] = {}
+    for e in cuda:
+        total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us()
+    ranked = sorted(total.items(), key=lambda kv: -kv[1])
+    return ({name: us / iters / 1e3 for name, us in ranked},
+            len(cuda) / iters)
 
 
 def device_ms(fn: Callable[[], object], iters: int = 20) -> Optional[float]:
