@@ -658,8 +658,7 @@ def phase_llama_trace(serve):
     under the profiler: one prefill and 4 decode steps, the card's time per
     call by kernel. The idle share is taken against phase 10's host-clock
     times of the same calls (``serve``), read before any profiler session:
-    after one, every launch costs the host more, so the host clock of this
-    phase (``wall_ms_after_profiling``) reads high."""
+    after one, every launch costs the host more."""
     import gc
 
     from ray_tpu_torch.models import llama
@@ -667,7 +666,7 @@ def phase_llama_trace(serve):
 
     cfg = llama.LlamaConfig.llama2_7b()
     model = llama.init_params(cfg, _cuda_gen(20))
-    llama_runs.cast_for_serving(model, torch.bfloat16)
+    llama.cast_for_serving(model, torch.bfloat16)
     B, T = LLAMA_SERVE["batch"], LLAMA_SERVE["prompt"]
     prompts = llama_runs.prompts(21, B, T, cfg.vocab_size, "cuda")
     caches = llama.init_kv_caches(cfg, B, T + 8)
@@ -681,16 +680,6 @@ def phase_llama_trace(serve):
         index[0] += 1
 
     calls = {"prefill": (prefill, 1), "decode_step": (decode, 4)}
-    wall = {}
-    for name, (fn, n) in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        index[0] = T
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall[name] = (time.perf_counter() - t0) / n * 1e3
     fields = {}
     for name, (fn, n) in calls.items():
         index[0] = T
@@ -700,7 +689,7 @@ def phase_llama_trace(serve):
                      if any(m in k.lower() for m in MATMUL_KERNELS))
         flash = sum(ms for k, ms in kernels.items() if "flash_fwd" in k)
         fields[name] = {
-            "wall_ms": serve[name], "wall_ms_after_profiling": wall[name],
+            "wall_ms": serve[name],
             "device_ms": device, "idle_share": 1 - device / serve[name],
             "kernels_per_call": per_call, "matmul_ms": matmul,
             "flash_fwd_ms": flash, "other_ms": device - matmul - flash,
@@ -713,6 +702,30 @@ def phase_llama_trace(serve):
          note="the profiler's kernel durations against phase 10's host "
               "clock of the same calls (its median prefill and decode step); "
               "decode steps here at positions 512-515", **fields)
+
+
+@contextlib.contextmanager
+def _sdpa_attention():
+    """Route the model's flash-attention calls to torch SDPA, the control
+    of the bf16 serving limits. Only the shapes of a prefill (Sq = Sk) and
+    of a decode step (Sq = 1, which sees every live key) occur, where
+    SDPA's top-left causal alignment is the kernel's bottom-right one."""
+    import ray_tpu_torch.ops as ops
+
+    kernel_path = ops.flash_attention
+
+    def sdpa(q, k, v, *, causal=False, sm_scale=None, **_):
+        sq, sk = q.shape[-2], k.shape[-2]
+        if sq not in (1, sk):
+            raise ValueError(f"no SDPA control for causal Sq {sq} < Sk {sk}")
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal and sq == sk, scale=sm_scale)
+
+    ops.flash_attention = sdpa
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel_path
 
 
 def _cuda_gen(seed):
@@ -772,7 +785,9 @@ def phase_llama_serve(name, cfg, seed):
     scales: ``generate`` over 4 prompts of 512 random tokens, 32 greedy new
     tokens each, launch counts zeroed just before and read just after; its
     prefill and decode steps timed again; the prefill's last logits and
-    every teacher-forced decode step against the plain attention."""
+    every teacher-forced decode step against the plain attention, and the
+    same for torch SDPA in the kernel's place, as a control of how much the
+    bf16 limits can see."""
     import gc
 
     from ray_tpu_torch.models import llama
@@ -783,7 +798,7 @@ def phase_llama_serve(name, cfg, seed):
     B, T, new = (LLAMA_SERVE[k] for k in ("batch", "prompt", "new_tokens"))
     t0 = time.perf_counter()
     model = llama.init_params(cfg, _cuda_gen(seed))
-    llama_runs.cast_for_serving(model, torch.bfloat16)
+    llama.cast_for_serving(model, torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_bytes = sum(p.numel() * p.element_size()
@@ -796,9 +811,14 @@ def phase_llama_serve(name, cfg, seed):
     tokens, generate_s = llama_runs.time_generate(model, prompts, new)
     launches = _read_launches()
     peak = torch.cuda.max_memory_allocated()
-    steps = [llama_runs.time_steps(model, tokens, T) for _ in range(3)]
+    steps = [llama_runs.time_steps(model, tokens, T,
+                                   counts=(_zero_launches, _read_launches))
+             for _ in range(3)]
     kernel, plain = llama_runs.teacher_forced_logits_both(model, tokens, T)
     errs = llama_runs.logit_errors(kernel, plain)
+    with _sdpa_attention():
+        control = llama_runs.logit_errors(
+            llama_runs.teacher_forced_logits(model, tokens, T), plain)
     finite = all(bool(torch.isfinite(x.float()).all()) for x in kernel)
     argmax_equal = sum(int((x.argmax(-1) == tokens[:, T + i]).sum())
                        for i, x in enumerate(kernel)) / (B * new)
@@ -828,6 +848,10 @@ def phase_llama_serve(name, cfg, seed):
     prefill_bound, prefill_bound_by = _bound(prefill_bytes, prefill_flops)
     want = {"flash_fwd": cfg.n_layer * new, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0}
+    want_steps = {"prefill_launches": dict(want, flash_fwd=cfg.n_layer),
+                  "decode_launches": dict(want, flash_fwd=cfg.n_layer
+                                          * (new - 1))}
+    step_launches = {k: [x[k] for x in steps] for k in want_steps}
     emit("llama_serve", config=name, layers=cfg.n_layer,
          n_kv_head=cfg.n_kv_head, vocab=cfg.vocab_size, batch=B, prompt=T,
          new_tokens=new, cache_len=T + new, weight_bytes=weight_bytes,
@@ -839,17 +863,25 @@ def phase_llama_serve(name, cfg, seed):
          decode_bound_ms_weights=decode_bound_weights,
          decode_bound_ms=decode_bound,
          decode_share_of_bound=decode_bound / decode_ms[1],
-         peak_memory_bytes=peak, launches=launches,
-         launches_per_generate=f"{cfg.n_layer} per prefill + {cfg.n_layer} "
-                               f"per decode step x {new - 1}",
+         peak_memory_bytes=peak, launches=launches, **step_launches,
          generated_tokens_equal_kernel_argmax=argmax_equal, finite=finite,
          **errs, share_of_limits={k: errs[k] / v
                                   for k, v in LLAMA_BF16_LIMITS.items()},
          tolerance={**LLAMA_BF16_LIMITS, "reason": "2.3x what a CPU "
-                    "emulation of bf16 noise over 32 layers gave (PERF.md)"})
+                    "emulation of bf16 noise over 32 layers gave (PERF.md)"},
+         control_sdpa={**control, "share_of_limits": {
+             k: control[k] / v for k, v in LLAMA_BF16_LIMITS.items()},
+             "within_limits": all(control[k] <= v for k, v in
+                                  LLAMA_BF16_LIMITS.items()),
+             "note": "torch SDPA in the kernel's place against the plain "
+                     "attention: not gated, it shows what the limits "
+                     "can tell apart"})
     problems = []
     if launches != want:
         problems.append(f"launches {launches}, want {want}")
+    for k, w in want_steps.items():
+        if any(x != w for x in step_launches[k]):
+            problems.append(f"{k} {step_launches[k]}, want {w}")
     if not finite:
         problems.append("non-finite logits")
     for k, limit in LLAMA_BF16_LIMITS.items():
@@ -857,8 +889,8 @@ def phase_llama_serve(name, cfg, seed):
             problems.append(f"kernel vs plain {k} {errs[k]} > {limit}")
     if problems:
         raise AssertionError(f"llama_serve {name}: " + "; ".join(problems))
-    return {"prefill_launches": cfg.n_layer,
-            "decode_launches": cfg.n_layer * (new - 1),
+    return {"prefill_launches": steps[0]["prefill_launches"]["flash_fwd"],
+            "decode_launches": steps[0]["decode_launches"]["flash_fwd"],
             "prefill": prefill_ms[1], "decode_step": decode_ms[1]}
 
 

@@ -8,8 +8,8 @@ biases and an untied LM head. Numerics follow the reference, which
 computes in ``config.dtype`` over f32 parameters: every Dense casts its
 input and weight to ``dtype`` for the product (``gpt2.Dense``). For serving,
 the caller casts the Dense and Embed weights to bf16 and keeps the norm
-scales f32, as a JAX user casts the parameter tree before ``generate``; a
-Dense then finds its weight already in ``dtype`` and casts nothing.
+scales f32 (``cast_for_serving``), as a JAX user casts the parameter tree
+before ``generate``; a Dense then finds its weight already in ``dtype`` and casts nothing.
 
 Attention always goes through ``ray_tpu_torch.ops.flash_attention`` with
 ``causal=True``: the sm_90a kernels on CUDA tensors (or a raise), their
@@ -281,6 +281,18 @@ def init_params(config: LlamaConfig,
             else:  # Dense weight, (out, in)
                 p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
     return model
+
+
+def cast_for_serving(model: Llama, dtype: torch.dtype = torch.bfloat16
+                     ) -> None:
+    """Dense and Embed weights to ``dtype`` in place, one at a time; the
+    RMSNorm scales stay f32. The cast a JAX user makes of the parameter
+    tree before ``generate``: with f32 weights every decode step would
+    re-cast all of them."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Linear, nn.Embedding)):
+                module.weight.data = module.weight.data.to(dtype)
 
 
 def loss_fn(model: Llama, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -13,11 +13,10 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.tools.train_runs import grad_rel_errs, plain_attention
@@ -33,16 +32,6 @@ def prompts(seed: int, batch: int, length: int, vocab: int,
     """(batch, length) random token ids from numpy ``seed``."""
     ids = np.random.default_rng(seed).integers(0, vocab, size=(batch, length))
     return torch.from_numpy(ids).to(device)
-
-
-def cast_for_serving(model: llama.Llama, dtype: torch.dtype) -> None:
-    """Dense and Embed weights to ``dtype`` in place, one at a time; the
-    RMSNorm scales stay f32 (the caller's cast of the parameter tree
-    before serving)."""
-    with torch.no_grad():
-        for module in model.modules():
-            if isinstance(module, (nn.Linear, nn.Embedding)):
-                module.weight.data = module.weight.data.to(dtype)
 
 
 def teacher_forced_logits(model: llama.Llama, tokens: torch.Tensor,
@@ -110,28 +99,43 @@ def time_generate(model: llama.Llama, prompt_ids: torch.Tensor,
     return tokens, time.perf_counter() - t0
 
 
-def time_steps(model: llama.Llama, tokens: torch.Tensor, prompt_len: int
-               ) -> Dict[str, float]:
+def time_steps(model: llama.Llama, tokens: torch.Tensor, prompt_len: int,
+               counts: Optional[Tuple[Callable[[], None],
+                                      Callable[[], dict]]] = None
+               ) -> Dict[str, object]:
     """The steps of ``generate`` again on the tokens it produced: the
     prefill of ``tokens[:, :prompt_len]`` (host clock to a sync), then one
     decode step per later token but the last, with one sync after the last
-    (so the host runs ahead as in ``generate``)."""
+    (so the host runs ahead as in ``generate``). ``counts``, a pair of
+    functions (zero, read) of the kernels' launch counts, adds the launches
+    of the prefill and of the decode steps, each zeroed just before and
+    read just after, outside the timed spans."""
+    zero, read = counts or (lambda: None, lambda: None)
     device = tokens.device
     B, S = tokens.shape
     caches = llama.init_kv_caches(model.config, B, S, device=device)
     _sync(device)
+    zero()
     t0 = time.perf_counter()
     _, caches = llama._prefill(model, tokens[:, :prompt_len], caches)
     _sync(device)
     t1 = time.perf_counter()
+    prefill_launches = read()
+    zero()
+    t2 = time.perf_counter()
     for t in range(prompt_len, S - 1):
         _, caches = llama._decode_step(model, tokens[:, t:t + 1], t, caches)
     _sync(device)
-    t2 = time.perf_counter()
+    t3 = time.perf_counter()
+    decode_launches = read()
     steps = S - 1 - prompt_len
-    return {"prefill_ms": (t1 - t0) * 1e3,
-            "decode_ms_per_token": (t2 - t1) / max(steps, 1) * 1e3,
-            "decode_steps": steps}
+    out = {"prefill_ms": (t1 - t0) * 1e3,
+           "decode_ms_per_token": (t3 - t2) / max(steps, 1) * 1e3,
+           "decode_steps": steps}
+    if counts is not None:
+        out.update(prefill_launches=prefill_launches,
+                   decode_launches=decode_launches)
+    return out
 
 
 def _model(cfg: llama.LlamaConfig, device, seed: int = 0) -> llama.Llama:
