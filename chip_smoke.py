@@ -16,7 +16,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 3. kernel vs plain: the ``flash_fwd`` sm_90a kernel against its plain
    PyTorch version (f32 math on the same rounded inputs) over dtypes
    {f32, bf16, f16} x head dims {16, 32, 64, 128} x B*H {12, 24} x causal
-   x lengths, plus cross lengths and rows with no live column. Then the
+   x lengths, plus cross lengths, rows with no live column and ViT's
+   non-causal lengths (197, 197) and (17, 17). Then the live length
+   ``k_len`` on the device over a static cache of 544 rows (the Llama
+   decode's): every dtype x D {64, 128} x Sq {1, 5} x k_len {1, 64, 513,
+   543} x causal, with NaN in the rows past k_len, which the kernel must
+   never read. Then the
    edges of the tensor-core design (bf16 and f16 run on it, f32 on the CUDA
    cores; the library reports which, and the phase asserts it): bf16 and
    f16 x D {16, 32, 64, 128} x causal Sq {65, 127, 1000} x Sk 1024, where
@@ -32,7 +37,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    same q, k, v, a non-uniform dO and the forward kernel's out and lse, over
    {f32, bf16, f16} x D {16, 32, 64, 128} x B*H 12 x causal x S {1, 64, 129,
    512, 1024}, plus (16, 64), (1, 300) and causal (64, 16), whose dead rows
-   must get dq = 0 exactly, and the training shape (B*H 192, S 1024, D 64,
+   must get dq = 0 exactly, ViT's non-causal (197, 197) and (17, 17), and
+   the training shape (B*H 192, S 1024, D 64,
    causal) in f32. Tolerance: ``TOLS``, element by element, per tensor. One
    bf16 case is also held against torch.autograd through
    ``attention_reference`` in f32, at atol 1e-2 (delta takes the forward's
@@ -76,29 +82,48 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 10. llama_serve Llama-2-7B, 11. llama_serve Llama-3-8B (GQA, 8 KV heads):
    full depth and width, bf16 Dense and Embed weights, f32 norm scales.
    ``generate`` over 4 prompts of 512 random tokens, 32 greedy new tokens,
-   caches of 544, launch counts zeroed just before and read just after:
+   caches of 544 handed whole to the kernel with the live length on the
+   device, launch counts zeroed just before and read just after:
    flash_fwd exactly 32 per prefill + 32 per decode step x 31 = 1024, no
-   backward launch. Then its prefill and decode steps timed again (3
-   runs), and the prefill's last logits and every teacher-forced decode
-   step against the plain attention on the same weights and tokens:
-   ||d|| / ||ref|| <= 5e-2 and max |d| <= 0.25 (``LLAMA_BF16_LIMITS``,
-   argued before the first chip run). Prints prefill ms, decode ms per
-   token, tokens/s, peak memory and the decode step's share of its HBM
-   bound.
+   backward launch; the tokens' sha256. Then its prefill and decode steps
+   timed again (3 runs), and the prefill's last logits and every
+   teacher-forced decode step against the plain attention on the same
+   weights and tokens: ||d|| / ||ref|| <= 5e-2 and max |d| <= 0.25
+   (``LLAMA_BF16_LIMITS``, argued before the first chip run; torch SDPA in
+   the kernel's place, with the kernel's mask, is an ungated control).
+   The kernel is also held on real activations: the q, k, v the model
+   hands it at layers 0, 16 and 31 during the prefill and during one
+   decode step, against its plain version at ``TOLS`` element by element.
+   Prints prefill ms, decode ms per token, tokens/s, peak memory and the
+   decode step's share of its HBM bound.
 12. llama_train: Llama-2-7B width cut to 2 layers, bf16 compute over f32
    weights, batch 2 x 2048: one step's gradients through the kernels
    against the plain attention's (worst parameter's relative error norm
    <= 5e-2, ``LLAMA_GRAD_LIMIT``), then 5 AdamW steps on one batch: finite
    losses, the last below the first, and each kernel launched exactly 2
    x 5 times.
-13. kernels: per kernel its launches on its path, error, time (CUDA events)
+13. vit_train: ViT-B/16 at full depth and width (224^2, S 197, 86.6 M
+   parameters), bf16 over f32 weights, batch 64, ``make_train_state``'s
+   AdamW (lr ``VIT["lr"]``): 5 steps on one batch, finite losses, the last
+   below the first, 12 launches of each kernel per step (non-causal,
+   B*H 768, S 197, D 64); the kernel held on the real q, k, v of layers
+   0, 6 and 11 at ``TOLS``; an f32 pass cut to 2 layers at full width,
+   kernel path against plain path on the logits, max |d| / max |ref| <=
+   1e-4 (``VIT_F32_LIMIT``). Prints step ms and images/s.
+14. resnet_train: ResNet-50 with the CIFAR stem, bf16 over f32 weights,
+   batch 256 of 32^2 images, AdamW (lr ``RESNET["lr"]``): 5 steps on one
+   batch, finite losses, the last below the first, and no flash kernel
+   launched (its convolutions are cuDNN's). Prints step ms and images/s.
+15. kernels: per kernel its launches on its path, error, time (CUDA events)
    at that path's shape, the plain version's time, a PyTorch call as a
    yardstick (the port never calls it) and the least time the card could
    take: flash_fwd at GPT-2's serving shape (B*H 12, S 512, D 64, causal,
-   bf16) and at Llama's prefill (B*H 128, S 512, D 128) and decode (B*H
-   128, Sq 1, Sk 543, D 128) shapes, and all three kernels at GPT-2's
-   training shape (B*H 192, S 1024, D 64, causal, bf16) and Llama's (B*H
-   64, S 2048, D 128), each held to the bf16 ``TOLS`` element by element
+   bf16) and at Llama's prefill (B*H 128, Sq 512 over the cache of 544
+   rows, k_len 512, D 128) and decode (B*H 128, Sq 1, cache 544, k_len
+   543, D 128) shapes, and all three kernels at GPT-2's training shape
+   (B*H 192, S 1024, D 64, causal, bf16), Llama's (B*H 64, S 2048, D 128)
+   and ViT-B/16's (B*H 768, S 197, D 64, non-causal), each held to the
+   bf16 ``TOLS`` element by element
    (the line prints the tolerance and the largest error's share of its
    limit), with an estimate of attention's share of each training step.
    Each entry also gives its design as the library reports it
@@ -114,12 +139,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    serving shape. Two launches of each backward kernel at the training
    shape must give the same bits.
 
-14. llama_trace: Llama-2-7B serving once more, after every events
+16. llama_trace: Llama-2-7B serving once more, after every events
    timing, under the profiler: one prefill and 4 decode steps, each
    call's device time (the sum of its kernels' durations, the matrix
    products' part, flash_fwd's part, the rest, the largest kernels)
    against phase 10's host clock of the same calls, and the device's idle
    share.
+
+Every phase raises on a failed check; no failure is caught.
 
 Then one line with each phase's seconds. The last two lines are the
 ``nvidia-smi`` line and
@@ -131,6 +158,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import hashlib
 import json
 import math
 import subprocess
@@ -227,16 +255,19 @@ def _tol_fields(dtype):
     return {"atol": atol, "rtol": rtol}
 
 
-def _check_flash(q, k, v, causal):
+def _check_flash(q, k, v, causal, k_len=None):
     """Kernel vs plain on one input; returns (ok, out_err, lse_err,
     out error's share of its limit). Rows with no live column must get
-    lse = +inf and out = 0 exactly."""
+    lse = +inf and out = 0 exactly. With a live length ``k_len``, the rows
+    of k and v past it may hold NaN: the kernel must not read them, and the
+    plain version takes them as 0 (they are masked)."""
     from ray_tpu_torch.ops import attention as attn
 
-    out, lse = attn.flash_attention_fwd(q, k, v, causal=causal)
-    ref, ref_lse = attn._flash_plain(q.float(), k.float(), v.float(),
-                                     causal=causal,
-                                     sm_scale=q.shape[-1] ** -0.5)
+    out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, k_len=k_len)
+    ref, ref_lse = attn._flash_plain(q.float(), k.float().nan_to_num(),
+                                     v.float().nan_to_num(), causal=causal,
+                                     sm_scale=q.shape[-1] ** -0.5,
+                                     k_len=k_len)
     ok_out, out_err, share = _close(out.float(), ref, *TOLS[q.dtype])
     same_inf = bool(torch.equal(torch.isinf(lse), torch.isinf(ref_lse)))
     dead_zero = not bool((out[torch.isinf(ref_lse)] != 0).any())
@@ -248,13 +279,19 @@ def _check_flash(q, k, v, causal):
 
 
 def _flash_cases():
-    """(Sq, Sk, causal): square lengths, cross lengths, and causal (64, 16)
-    whose rows 0..47 see no key."""
+    """(Sq, Sk, causal): square lengths, cross lengths, causal (64, 16)
+    whose rows 0..47 see no key, and ViT's non-causal lengths: 197 (196
+    patches and the class token of ViT-B/16) and 17 (``small_test``)."""
     cases = [(s, s, causal) for s in (1, 64, 129, 512, 1024)
              for causal in (False, True)]
     for causal in (False, True):
         cases += [(16, 64, causal), (1, 300, causal)]
-    return cases + [(64, 16, True)]
+    return cases + [(64, 16, True), (197, 197, False), (17, 17, False)]
+
+
+# the live lengths of a decode over a whole static cache: Llama's cache of
+# 544 rows (4 x 512 prompts + 32 new tokens), queries of 1 and 5 tokens
+K_LEN_CACHE, K_LEN_QUERIES, K_LENS = 544, (1, 5), (1, 64, 513, 543)
 
 
 def phase_kernel_vs_plain():
@@ -266,12 +303,16 @@ def phase_kernel_vs_plain():
     failures = []
     n = 0
 
-    def case(group, dtype, bh, d, sq, sk, causal):
+    def case(group, dtype, bh, d, sq, sk, causal, k_len=None):
         nonlocal n
         mk = lambda s: torch.randn((bh, s, d), generator=gen,
                                    device=dev).to(dtype)
         q, k, v = mk(sq), mk(sk), mk(sk)
-        ok, out_err, lse_err, share = _check_flash(q, k, v, causal)
+        live = None
+        if k_len is not None:   # NaN past the live length: never read
+            k[:, k_len:] = v[:, k_len:] = float("nan")
+            live = torch.tensor(k_len, dtype=torch.int32, device=dev)
+        ok, out_err, lse_err, share = _check_flash(q, k, v, causal, live)
         n += 1
         key = str(dtype).split(".")[-1]
         w = worst.setdefault(group, {}).setdefault(key, [0.0, 0.0, 0.0])
@@ -279,7 +320,7 @@ def phase_kernel_vs_plain():
                              zip(w, (out_err, lse_err, share))]
         if not ok:
             failures.append(dict(dtype=key, d=d, bh=bh, sq=sq, sk=sk,
-                                 causal=causal, out_err=out_err,
+                                 causal=causal, k_len=k_len, out_err=out_err,
                                  lse_err=lse_err, share=share))
 
     for dtype in TOLS:
@@ -287,6 +328,15 @@ def phase_kernel_vs_plain():
             for bh in (12, 24):
                 for sq, sk, causal in _flash_cases():
                     case("lengths", dtype, bh, d, sq, sk, causal)
+    # a live length k_len on the device over a static cache (the Llama
+    # decode's); with Sq 5 and k_len 1, rows 0..3 see no key
+    for dtype in TOLS:
+        for d in (64, 128):
+            for sq in K_LEN_QUERIES:
+                for k_len in K_LENS:
+                    for causal in (False, True):
+                        case("k_len", dtype, 12, d, sq, K_LEN_CACHE, causal,
+                             k_len)
     # the tensor-core design's edges: causal cross lengths whose diagonal
     # crosses a 64-row tile off its corner, and the training shape in bf16
     for dtype in (torch.bfloat16, torch.float16):
@@ -543,6 +593,17 @@ def phase_serve_bf16():
     return launches
 
 
+def _loss_problems(losses):
+    """A training run's loss checks: finite, and the last below the
+    first."""
+    problems = []
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("non-finite loss")
+    if not losses[-1] < losses[0]:
+        problems.append(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    return problems
+
+
 def _zero_launches():
     from ray_tpu_torch.ops import attention as attn
 
@@ -610,11 +671,7 @@ def phase_train_bf16():
          seq=train_runs.SEQ, steps=n_steps, step_ms=step_ms,
          tokens_per_s=train_runs.BATCH * train_runs.SEQ / step_ms * 1e3,
          losses=losses, launches=launches, peak_memory_bytes=peak)
-    problems = []
-    if not all(math.isfinite(x) for x in losses):
-        problems.append("non-finite loss")
-    if not losses[-1] < losses[0]:
-        problems.append(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    problems = _loss_problems(losses)
     want = GPT2_124M["n_layer"] * n_steps
     if launches != dict.fromkeys(KERNELS, want):
         problems.append(f"launches {launches}, want {want} each")
@@ -670,19 +727,19 @@ def phase_llama_trace(serve):
     B, T = LLAMA_SERVE["batch"], LLAMA_SERVE["prompt"]
     prompts = llama_runs.prompts(21, B, T, cfg.vocab_size, "cuda")
     caches = llama.init_kv_caches(cfg, B, T + 8)
-    index = [T]
+    index = torch.tensor(T, device="cuda")   # on the device, as in generate
 
     def prefill():
         llama._prefill(model, prompts, caches)
 
     def decode():
-        llama._decode_step(model, prompts[:, -1:], index[0], caches)
-        index[0] += 1
+        llama._decode_step(model, prompts[:, -1:], index, caches)
+        index.add_(1)
 
     calls = {"prefill": (prefill, 1), "decode_step": (decode, 4)}
     fields = {}
     for name, (fn, n) in calls.items():
-        index[0] = T
+        index.fill_(T)
         kernels, per_call = timing.kernel_ms(fn, n)
         device = sum(kernels.values())
         matmul = sum(ms for k, ms in kernels.items()
@@ -707,19 +764,24 @@ def phase_llama_trace(serve):
 @contextlib.contextmanager
 def _sdpa_attention():
     """Route the model's flash-attention calls to torch SDPA, the control
-    of the bf16 serving limits. Only the shapes of a prefill (Sq = Sk) and
-    of a decode step (Sq = 1, which sees every live key) occur, where
-    SDPA's top-left causal alignment is the kernel's bottom-right one."""
+    of the bf16 serving limits. The caches reach it whole with a live
+    length ``k_len`` on the device, so it gets the kernel's mask as a
+    boolean one, built on the device: query i sees key j iff j < k_len and
+    j <= i + (k_len - Sq)."""
     import ray_tpu_torch.ops as ops
 
     kernel_path = ops.flash_attention
 
-    def sdpa(q, k, v, *, causal=False, sm_scale=None, **_):
+    def sdpa(q, k, v, *, causal=False, sm_scale=None, k_len=None, **_):
         sq, sk = q.shape[-2], k.shape[-2]
-        if sq not in (1, sk):
-            raise ValueError(f"no SDPA control for causal Sq {sq} < Sk {sk}")
+        live = sk if k_len is None else k_len
+        qi = torch.arange(sq, device=q.device)[:, None]
+        kj = torch.arange(sk, device=q.device)[None, :]
+        mask = kj < live
+        if causal:
+            mask = mask & (kj <= qi + (live - sq))
         return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal and sq == sk, scale=sm_scale)
+            q, k, v, attn_mask=mask, scale=sm_scale)
 
     ops.flash_attention = sdpa
     try:
@@ -780,6 +842,41 @@ def phase_llama_f32():
         raise AssertionError("llama_f32: " + "; ".join(problems))
 
 
+def _checked_layers(n_layer):
+    """The layers whose attention inputs are held: first, middle, last."""
+    return (0, n_layer // 2, n_layer - 1)
+
+
+def _digest(tokens):
+    """sha256 of the tokens' int64 bytes, to compare runs and trees."""
+    return hashlib.sha256(tokens.to(torch.int64).cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def _real_activation_checks(inputs):
+    """Each captured flash-attention call (label, folded (q, k, v), its
+    keywords) run again through the kernel and held against the plain
+    version on the same real activations, element by element at ``TOLS``,
+    as ``_check_flash`` holds random inputs."""
+    rows = []
+    for label, (q, k, v), kw in inputs:
+        causal, k_len = kw.get("causal", False), kw.get("k_len")
+        ok, out_err, lse_err, share = _check_flash(q, k, v, causal, k_len)
+        rows.append({"call": label, "bh": q.shape[0], "sq": q.shape[1],
+                     "sk": k.shape[1], "d": q.shape[2],
+                     "k_len": None if k_len is None else int(k_len),
+                     "causal": causal, "dtype": str(q.dtype).split(".")[-1],
+                     "ok": ok, "out_err": out_err, "lse_err": lse_err,
+                     "share_of_limit": share})
+    return rows
+
+
+def _activation_problems(rows):
+    return [f"kernel vs plain on the real activations of {r['call']}: "
+            f"error {r['out_err']}, {r['share_of_limit']} of its limit"
+            for r in rows if not r["ok"]]
+
+
 def phase_llama_serve(name, cfg, seed):
     """One model at full width, bf16 Dense and Embed weights, f32 norm
     scales: ``generate`` over 4 prompts of 512 random tokens, 32 greedy new
@@ -822,6 +919,8 @@ def phase_llama_serve(name, cfg, seed):
     finite = all(bool(torch.isfinite(x.float()).all()) for x in kernel)
     argmax_equal = sum(int((x.argmax(-1) == tokens[:, T + i]).sum())
                        for i, x in enumerate(kernel)) / (B * new)
+    activations = _real_activation_checks(llama_runs.attention_inputs(
+        model, tokens, T, _checked_layers(cfg.n_layer)))
     del model, kernel, plain
     gc.collect()
     torch.cuda.empty_cache()
@@ -865,6 +964,7 @@ def phase_llama_serve(name, cfg, seed):
          decode_share_of_bound=decode_bound / decode_ms[1],
          peak_memory_bytes=peak, launches=launches, **step_launches,
          generated_tokens_equal_kernel_argmax=argmax_equal, finite=finite,
+         tokens_sha256=_digest(tokens), real_activations=activations,
          **errs, share_of_limits={k: errs[k] / v
                                   for k, v in LLAMA_BF16_LIMITS.items()},
          tolerance={**LLAMA_BF16_LIMITS, "reason": "2.3x what a CPU "
@@ -884,6 +984,7 @@ def phase_llama_serve(name, cfg, seed):
             problems.append(f"{k} {step_launches[k]}, want {w}")
     if not finite:
         problems.append("non-finite logits")
+    problems += _activation_problems(activations)
     for k, limit in LLAMA_BF16_LIMITS.items():
         if not errs[k] <= limit:
             problems.append(f"kernel vs plain {k} {errs[k]} > {limit}")
@@ -927,11 +1028,7 @@ def phase_llama_train():
          tokens_per_s=c["batch"] * c["seq"] / step_median * 1e3,
          launches=launches, peak_memory_bytes=peak, grads_vs_plain=grads,
          tolerance={"worst_grad_rel_err": LLAMA_GRAD_LIMIT})
-    problems = []
-    if not all(math.isfinite(x) for x in losses):
-        problems.append("non-finite loss")
-    if not losses[-1] < losses[0]:
-        problems.append(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    problems = _loss_problems(losses)
     want = cfg.n_layer * c["steps"]
     if launches != dict.fromkeys(KERNELS, want):
         problems.append(f"launches {launches}, want {want} each")
@@ -941,6 +1038,129 @@ def phase_llama_train():
     if problems:
         raise AssertionError("llama_train: " + "; ".join(problems))
     return launches, step_median
+
+
+# ViT-B/16 (224^2, batch 64: one Tune trial per card) and ResNet-50 with
+# the CIFAR stem (32^2, batch 256), both bf16 over f32 weights with the
+# reference's AdamW at lr 1e-4: at its default 1e-3, with no warm-up, the
+# first Adam steps overshoot at full width, in the reference as in the
+# port (PERF.md), and the loss of 5 steps rises. The f32 check cuts
+# ViT-B/16 to 2 of its 12 layers
+VIT = {"batch": 64, "steps": 5, "lr": 1e-4, "f32_layers": 2,
+       "f32_batch": 16}
+RESNET = {"batch": 256, "steps": 5, "lr": 1e-4}
+# f32 kernel path vs plain path: max |kernel - plain| / max |plain| over
+# the logits (f32 sums in another order through 2 layers; Llama's 4 layers
+# measured 2.5e-6 of its largest logit, PERF.md)
+VIT_F32_LIMIT = 1e-4
+
+
+def _train_fields(run, batch):
+    """Step ms (the median of the steps after the first) and images/s."""
+    timed = sorted(run["step_ms"][1:])
+    median = timed[len(timed) // 2]
+    return {"losses": run["losses"], "step_ms": run["step_ms"],
+            "step_ms_median_after_first": median,
+            "images_per_s": batch / median * 1e3}
+
+
+def phase_vit():
+    """ViT-B/16 at full depth and width, bf16 over f32 weights, batch 64:
+    5 AdamW steps on one batch, launch counts zeroed just before and read
+    just after (12 of each kernel per step); the kernel held on the real
+    attention inputs of layers 0, 6 and 11 (non-causal, S 197); then an
+    f32 pass cut to 2 layers at full width, kernel path against plain
+    path on the logits."""
+    import gc
+
+    from ray_tpu_torch.models import vision
+    from ray_tpu_torch.tools import vision_runs
+
+    cfg = vision.ViTConfig.vit_b16()
+    batch = vision.synthetic_image_batch(40, VIT["batch"], cfg.image_size,
+                                         cfg.num_classes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    run = vision_runs.train(cfg, batch, VIT["steps"], "cuda", VIT["lr"])
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    net = vision_runs.model(cfg, "cuda")
+    n_params = sum(p.numel() for p in net.parameters())
+    activations = _real_activation_checks(vision_runs.attention_inputs(
+        net, batch["image"], _checked_layers(cfg.n_layer)))
+    del net
+    f32 = vision.ViTConfig.vit_b16(n_layer=VIT["f32_layers"],
+                                   dtype=torch.float32)
+    net = vision_runs.model(f32, "cuda")
+    _zero_launches()
+    kernel, plain = vision_runs.logits_both(net,
+                                            batch["image"][:VIT["f32_batch"]])
+    f32_launches = _read_launches()
+    f32_err = float((kernel - plain).abs().max() / plain.abs().max())
+    del net, kernel, plain, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields = _train_fields(run, VIT["batch"])
+    emit("vit_train", config="vit_b16", image_size=cfg.image_size,
+         layers=cfg.n_layer, seq=cfg.seq_len, params=n_params,
+         batch=VIT["batch"], steps=VIT["steps"], lr=VIT["lr"], **fields,
+         launches=launches, peak_memory_bytes=peak,
+         real_activations=activations,
+         f32_check={"layers": f32.n_layer, "batch": VIT["f32_batch"],
+                    "max_rel_to_max": f32_err,
+                    "share_of_limit": f32_err / VIT_F32_LIMIT,
+                    "launches": f32_launches},
+         tolerance={"f32_max_rel_to_max": VIT_F32_LIMIT,
+                    "real_activations": _tol_fields(torch.bfloat16)})
+    problems = _loss_problems(run["losses"])
+    want = cfg.n_layer * VIT["steps"]
+    if launches != dict.fromkeys(KERNELS, want):
+        problems.append(f"launches {launches}, want {want} each")
+    problems += _activation_problems(activations)
+    if not f32_err <= VIT_F32_LIMIT:
+        problems.append(f"f32 kernel vs plain logits {f32_err}")
+    if f32_launches != {"flash_fwd": f32.n_layer, "flash_bwd_dq": 0,
+                        "flash_bwd_dkv": 0}:
+        problems.append(f"f32 pass launches {f32_launches}")
+    if problems:
+        raise AssertionError("vit_train: " + "; ".join(problems))
+    return launches, fields["step_ms_median_after_first"]
+
+
+def phase_resnet():
+    """ResNet-50 with the CIFAR stem, bf16 over f32 weights, batch 256 of
+    32^2 images: 5 AdamW steps on one batch, launch counts zeroed just
+    before and read just after; its convolutions are cuDNN's, so no flash
+    kernel may launch."""
+    import gc
+
+    from ray_tpu_torch.models import vision
+    from ray_tpu_torch.tools import vision_runs
+
+    cfg = vision.ResNetConfig.resnet50_cifar()
+    batch = vision.synthetic_image_batch(50, RESNET["batch"],
+                                         cfg.image_size, cfg.num_classes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    run = vision_runs.train(cfg, batch, RESNET["steps"], "cuda",
+                            RESNET["lr"])
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("resnet_train", config="resnet50_cifar",
+         stage_sizes=list(cfg.stage_sizes), image_size=cfg.image_size,
+         batch=RESNET["batch"], steps=RESNET["steps"], lr=RESNET["lr"],
+         **_train_fields(run, RESNET["batch"]), launches=launches,
+         peak_memory_bytes=peak)
+    problems = _loss_problems(run["losses"])
+    if any(launches.values()):
+        problems.append(f"flash kernels launched: {launches}")
+    if problems:
+        raise AssertionError("resnet_train: " + "; ".join(problems))
 
 
 def _bound(nbytes, flops):
@@ -999,41 +1219,47 @@ def _entry(name, launches, err, ms, plain_ms, bound, library_ms, flops,
             "design": design, **extra}
 
 
-def _fwd_shape_entry(launches, path, bh, sq, sk, d, seed):
-    """flash_fwd at one shape of a serving path (causal, bf16): (entry, a
+def _fwd_shape_entry(launches, path, bh, sq, sk, d, seed, k_len=None):
+    """flash_fwd at one shape of a serving path (causal, bf16; with a live
+    length ``k_len`` over Sk rows where the path gives one): (entry, a
     function giving the entry's profiler fields, to run after every
     CUDA-event timing)."""
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.tools import timing
 
-    if sq not in (1, sk):
-        raise ValueError(f"no SDPA yardstick for causal Sq {sq} < Sk {sk}")
+    live = sk if k_len is None else k_len
+    if sq not in (1, live):
+        raise ValueError(f"no SDPA yardstick for causal Sq {sq} < {live}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda"
                            ).to(torch.bfloat16) for s in (sq, sk, sk))
+    dev_len = None if k_len is None else torch.tensor(
+        k_len, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, k_len=dev_len)
     scale = d ** -0.5
-    out, _ = attn.flash_attention_fwd(q, k, v, causal=True)
-    ref, _ = attn._flash_plain(q.float(), k.float(), v.float(), causal=True,
-                               sm_scale=scale)
+    out, _ = attn.flash_attention_fwd(q, k, v, **kw)
+    ref, _ = attn._flash_plain(q.float(), k.float(), v.float(),
+                               sm_scale=scale, **kw)
     ok, err, share = _close(out.float(), ref, *TOLS[torch.bfloat16])
-    fwd = lambda: attn.flash_attention_fwd(q, k, v, causal=True)
+    fwd = lambda: attn.flash_attention_fwd(q, k, v, **kw)
     ms = timing.time_ms(fwd, 100)
     plain_ms = timing.time_ms(lambda: attn._flash_plain(
-        q, k, v, causal=True, sm_scale=scale), 20)
-    q4, k4, v4 = (t[None] for t in (q, k, v))
-    # SDPA's is_causal aligns top-left, the kernel bottom-right: the same
-    # mask at Sq = Sk; at Sq = 1 the one query sees every key, so SDPA runs
-    # without a mask there
+        q, k, v, sm_scale=scale, **kw), 20)
+    # SDPA over the live rows (a view of the same k and v): its is_causal
+    # aligns top-left, the kernel bottom-right, the same mask at Sq = live;
+    # at Sq = 1 the one query sees every live key, so SDPA runs without a
+    # mask there
+    q4, k4, v4 = (t[None] for t in (q, k[:, :live], v[:, :live]))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=sq == sk)
+        q4, k4, v4, is_causal=sq == live)
     library_ms = timing.time_ms(sdpa, 100)
     sdpa_error = _sdpa_error(sdpa(), ref)
     profile = lambda: {"device_ms": timing.device_ms(fwd),
                        **_sdpa_profile(sdpa)}
-    # q, k, v read once, out (bf16) and lse (f32) written once; QK^T and PV
-    # over the live pairs
-    nbytes = (2 * sq + 2 * sk) * bh * d * 2 + bh * sq * 4
-    flops = 4 * _live_pairs(bh, sq, sk, True) * d
+    # q and the live rows of k and v read once, out (bf16) and lse (f32)
+    # written once; QK^T and PV over the live pairs
+    nbytes = (2 * sq + 2 * live) * bh * d * 2 + bh * sq * 4
+    flops = 4 * _live_pairs(bh, sq, live, True) * d
     if not ok:
         raise AssertionError(f"flash_fwd at the {path} shape: error {err}, "
                              f"{share} of its limit")
@@ -1043,14 +1269,15 @@ def _fwd_shape_entry(launches, path, bh, sq, sk, d, seed):
                   tolerance=_tol_fields(torch.bfloat16),
                   err_share_of_limit=share, library="torch SDPA forward",
                   **sdpa_error,
-                  shape={"bh": bh, "sq": sq, "sk": sk, "d": d,
-                         "causal": True, "dtype": "bfloat16"}), profile
+                  shape={"bh": bh, "sq": sq, "sk": sk, "k_len": k_len,
+                         "d": d, "causal": True, "dtype": "bfloat16"}), profile
 
 
 def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
-                         seed):
+                         seed, causal=True):
     """flash_fwd, flash_bwd_dq and flash_bwd_dkv at the shape a training
-    path gives them (batch b x h heads, seq s, head dim d, causal, bf16):
+    path gives them (batch b x h heads, seq s, head dim d, causal or not,
+    bf16):
     (entries, attention's share of the step of ``n_layer`` layers, a
     function giving each entry's profiler fields by name, to run after
     every CUDA-event timing)."""
@@ -1062,8 +1289,8 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
     q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda"
                                ).to(torch.bfloat16) for _ in range(4))
     scale = d ** -0.5
-    kw = dict(causal=True, sm_scale=scale)
-    out, lse = attn.flash_attention_fwd(q, k, v, causal=True)
+    kw = dict(causal=causal, sm_scale=scale)
+    out, lse = attn.flash_attention_fwd(q, k, v, causal=causal)
     delta = attn._delta(out, do)
     # errors against the plain versions in f32 on the same rounded inputs
     f32 = [t.float() for t in (q, k, v, do)]
@@ -1093,7 +1320,7 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
     del f32, pairs, ref_dq, ref_dk, ref_dv, dq, dk, dv, again, first
 
     ms = {"flash_fwd": timing.time_ms(lambda: attn.flash_attention_fwd(
-              q, k, v, causal=True), 20),
+              q, k, v, causal=causal), 20),
           "flash_bwd_dq": timing.time_ms(lambda: attn._flash_bwd_dq_kernel(
               q, k, v, do, lse, delta, **kw), 10),
           "flash_bwd_dkv": timing.time_ms(lambda: attn._flash_bwd_dkv_kernel(
@@ -1113,7 +1340,7 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
                   for t in (q, k, v))
     do4 = do.view(b, h, s, d)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True)
+        q4, k4, v4, is_causal=causal)
     sdpa_fwd_bwd = lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
     sdpa_error = _sdpa_error(sdpa(), ref_out)
     del ref_out
@@ -1126,11 +1353,11 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
         if None not in (fwd["library_device_ms"], bwd["library_device_ms"]):
             bwd["library_device_ms"] -= fwd["library_device_ms"]
         flash_ms = timing.device_ms(lambda: attn.flash_attention_fwd(
-            q, k, v, causal=True))
+            q, k, v, causal=causal))
         return {"flash_fwd": {"device_ms": flash_ms, **fwd},
                 "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
 
-    live = _live_pairs(bh, s, s, True)
+    live = _live_pairs(bh, s, s, causal)
     stats = bh * s * 4   # one f32 per row: lse or delta
     flops = {"flash_fwd": 4 * live * d, "flash_bwd_dq": 6 * live * d,
              "flash_bwd_dkv": 8 * live * d}
@@ -1151,7 +1378,7 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
                                 "and dv together)"),
                "flash_bwd_dkv": (sdpa_bwd_ms, "torch SDPA backward (dq, dk "
                                  "and dv together)")}
-    shape = {"bh": bh, "s": s, "d": d, "causal": True, "dtype": "bfloat16"}
+    shape = {"bh": bh, "s": s, "d": d, "causal": causal, "dtype": "bfloat16"}
     entries = [_entry(name, launches[name], errs[name],
                       ms[name], plain_ms[name], bounds[name],
                       library[name][0], flops[name], design[name],
@@ -1177,27 +1404,35 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
 
 
 def phase_kernels(serve_launches, train_launches, step_ms, llama_serve,
-                  llama_train):
+                  llama_train, vit_train):
     """Every kernel at the shapes of every path: GPT-2's serving and
-    training shapes, then Llama-2-7B's prefill, decode and training
-    shapes."""
+    training shapes, Llama-2-7B's prefill and decode shapes (the whole
+    cache of 544 rows with the live length the path gives: 512 in the
+    prefill, 543 in the last decode step) and its training shape, and
+    ViT-B/16's training shape (non-causal, S 197)."""
+    cache = LLAMA_SERVE["prompt"] + LLAMA_SERVE["new_tokens"]
     entries, profiles, shares = [], [], []
-    for launches, path, bh, sq, sk, d, seed in (
-            (serve_launches["flash_fwd"], "serve", 12, 512, 512, 64, 3),
+    for launches, path, bh, sq, sk, d, seed, k_len in (
+            (serve_launches["flash_fwd"], "serve", 12, 512, 512, 64, 3,
+             None),
             (llama_serve["prefill_launches"], "llama_prefill", 128,
-             LLAMA_SERVE["prompt"], LLAMA_SERVE["prompt"], 128, 6),
-            (llama_serve["decode_launches"], "llama_decode", 128, 1,
-             LLAMA_SERVE["prompt"] + LLAMA_SERVE["new_tokens"] - 1, 128, 7)):
-        entry, profile = _fwd_shape_entry(launches, path, bh, sq, sk, d, seed)
+             LLAMA_SERVE["prompt"], cache, 128, 6, LLAMA_SERVE["prompt"]),
+            (llama_serve["decode_launches"], "llama_decode", 128, 1, cache,
+             128, 7, cache - 1)):
+        entry, profile = _fwd_shape_entry(launches, path, bh, sq, sk, d, seed,
+                                          k_len)
         entries.append(entry)
         profiles.append(lambda e=entry, p=profile: e.update(p()))
-    for launches, ms, path, b, h, s, d, n_layer, seed in (
-            (train_launches, step_ms, "train", 16, 12, 1024, 64, 12, 5),
+    for launches, ms, path, b, h, s, d, n_layer, seed, causal in (
+            (train_launches, step_ms, "train", 16, 12, 1024, 64, 12, 5,
+             True),
             (llama_train[0], llama_train[1], "llama_train",
              LLAMA_TRAIN["batch"], 32, LLAMA_TRAIN["seq"], 128,
-             LLAMA_TRAIN["layers"], 8)):
+             LLAMA_TRAIN["layers"], 8, True),
+            (vit_train[0], vit_train[1], "vit_train", VIT["batch"], 12, 197,
+             64, 12, 9, False)):
         group, share, profile = _train_shape_entries(
-            launches, ms, path, b, h, s, d, n_layer, seed)
+            launches, ms, path, b, h, s, d, n_layer, seed, causal)
         entries += group
         shares.append(share)
 
@@ -1246,8 +1481,10 @@ def main() -> int:
     timed("llama_serve_8b", phase_llama_serve, "llama3_8b",
           LlamaConfig.llama3_8b(), 30)
     llama_train = timed("llama_train", phase_llama_train)
+    vit_train = timed("vit_train", phase_vit)
+    timed("resnet_train", phase_resnet)
     timed("kernels", phase_kernels, serve_launches, train_launches, step_ms,
-          llama_serve, llama_train)
+          llama_serve, llama_train, vit_train)
     timed("llama_trace", phase_llama_trace, llama_serve)
     emit("seconds", **seconds)
     print(smi, flush=True)

@@ -1,11 +1,13 @@
 """ray_tpu_torch.models — model families ported to PyTorch."""
 
-from ray_tpu_torch.models import gpt2, llama
+from ray_tpu_torch.models import gpt2, llama, vision
 from ray_tpu_torch.models.convert import (
     llama_opt_state_from_jax,
     llama_params_from_jax,
     opt_state_from_jax,
     params_from_jax,
+    vision_opt_state_from_jax,
+    vision_params_from_jax,
 )
 from ray_tpu_torch.models.gpt2 import (
     build_train_step,
@@ -27,4 +29,7 @@ __all__ = [
     "make_train_state",
     "opt_state_from_jax",
     "params_from_jax",
+    "vision",
+    "vision_opt_state_from_jax",
+    "vision_params_from_jax",
 ]

@@ -1,10 +1,12 @@
-"""Weight bridge: the Flax GPT-2 and Llama parameter trees to the torch
-``state_dict``s, and optax's AdamW state to torch's.
+"""Weight bridge: the Flax GPT-2, Llama, ViT and ResNet parameter trees to
+the torch ``state_dict``s, and optax's AdamW state to torch's.
 
 The trees hold numpy arrays (``jax.tree.map(np.asarray, tree)`` on the JAX
 side), so this module needs neither JAX nor the JAX package. Dense
-``kernel`` is (in, out) and becomes a Linear ``weight`` (out, in); LayerNorm
-``scale`` becomes ``weight``; Embed ``embedding`` becomes ``weight``.
+``kernel`` is (in, out) and becomes a Linear ``weight`` (out, in); Conv
+``kernel`` is HWIO and becomes a Conv2d ``weight`` OIHW; LayerNorm and
+GroupNorm ``scale`` become ``weight``; Embed ``embedding`` becomes
+``weight``.
 """
 
 from __future__ import annotations
@@ -73,6 +75,58 @@ def llama_params_from_jax(tree: Mapping[str, Any]
     return sd
 
 
+def _dense(sd, name, leaf):
+    sd[f"{name}.weight"] = _t(leaf["kernel"]).T.contiguous()
+    sd[f"{name}.bias"] = _t(leaf["bias"])
+
+
+def _conv(sd, name, leaf, bias: bool = False):
+    sd[f"{name}.weight"] = _t(leaf["kernel"]).permute(3, 2, 0, 1).contiguous()
+    if bias:
+        sd[f"{name}.bias"] = _t(leaf["bias"])
+
+
+def _norm(sd, name, leaf):
+    sd[f"{name}.weight"] = _t(leaf["scale"])
+    sd[f"{name}.bias"] = _t(leaf["bias"])
+
+
+def vision_params_from_jax(tree: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """State dict for ``ray_tpu_torch.models.vision.ViT`` (a tree with
+    ``patch_embed``) or ``ResNet`` from a Flax tree of numpy arrays, under
+    the names Flax generated (``h_i/LayerNorm_0``, ``Dense_0``,
+    ``ResNetBlock_i/Conv_k``, ``GroupNorm_k``, ``shortcut``, ...); raises
+    KeyError on a missing leaf."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "patch_embed" in tree:
+        _conv(sd, "patch_embed", tree["patch_embed"], bias=True)
+        sd["cls"] = _t(tree["cls"])
+        sd["pos_embed"] = _t(tree["pos_embed"])
+        for i in range(sum(1 for k in tree if k.startswith("h_"))):
+            blk, name = tree[f"h_{i}"], f"h.{i}"
+            _norm(sd, f"{name}.norm1", blk["LayerNorm_0"])
+            _dense(sd, f"{name}.qkv", blk["qkv"])
+            _dense(sd, f"{name}.proj", blk["proj"])
+            _norm(sd, f"{name}.norm2", blk["LayerNorm_1"])
+            _dense(sd, f"{name}.fc1", blk["Dense_0"])
+            _dense(sd, f"{name}.fc2", blk["Dense_1"])
+        _norm(sd, "ln_f", tree["ln_f"])
+    else:
+        _conv(sd, "stem", tree["stem"])
+        _norm(sd, "stem_norm", tree["GroupNorm_0"])
+        for i in range(sum(1 for k in tree if k.startswith("ResNetBlock_"))):
+            blk, name = tree[f"ResNetBlock_{i}"], f"blocks.{i}"
+            for k in range(3):
+                _conv(sd, f"{name}.conv{k + 1}", blk[f"Conv_{k}"])
+                _norm(sd, f"{name}.norm{k + 1}", blk[f"GroupNorm_{k}"])
+            if "shortcut" in blk or "shortcut_norm" in blk:
+                _conv(sd, f"{name}.shortcut", blk["shortcut"])
+                _norm(sd, f"{name}.shortcut_norm", blk["shortcut_norm"])
+    _dense(sd, "head", tree["head"])
+    return sd
+
+
 def opt_state_from_jax(opt_state_tree, model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer) -> None:
     """Load optax's adamw state into ``optimizer`` (a ``torch.optim.AdamW``
@@ -92,6 +146,13 @@ def llama_opt_state_from_jax(opt_state_tree, model: torch.nn.Module,
     """``opt_state_from_jax`` for a Llama: the moments laid out as
     ``llama_params_from_jax`` lays out the parameters."""
     _load_adam(opt_state_tree, model, optimizer, llama_params_from_jax)
+
+
+def vision_opt_state_from_jax(opt_state_tree, model: torch.nn.Module,
+                              optimizer: torch.optim.Optimizer) -> None:
+    """``opt_state_from_jax`` for a ViT or ResNet: the moments laid out as
+    ``vision_params_from_jax`` lays out the parameters."""
+    _load_adam(opt_state_tree, model, optimizer, vision_params_from_jax)
 
 
 def _load_adam(opt_state_tree, model, optimizer, convert) -> None:

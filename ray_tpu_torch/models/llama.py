@@ -18,13 +18,18 @@ n // (n_head / n_kv_head), as ``jax.nn.dot_product_attention`` maps them;
 K and V are repeated over the head axis before the kernel, which takes
 contiguous (B*H, S, D) operands.
 
-The decode path writes each step's K and V into static per-layer caches in
-place (JAX: ``dynamic_update_slice`` with the caches donated) and hands the
-kernel only the live part ``[:cache_index + T]``. The reference instead
-attends over the whole cache with a -1e9 bias that lets query i (at
-position ``cache_index + i``) see key j iff j <= ``cache_index + i``; the
-kernel's bottom-right causal alignment over the live part gives the same
-keys, and the rows past it are never read.
+The decode path is static-shape, as the reference's is: each step writes
+its K and V into static per-layer caches in place with ``index_copy_`` at a
+device index (JAX: ``dynamic_update_slice`` with the caches donated) and
+hands the kernel the whole cache with the live key length ``k_len =
+cache_index + T`` as a device tensor, so every decode step launches kernels
+of the same shapes. The reference attends over the whole cache with a -1e9
+bias that lets query i (at position ``cache_index + i``) see key j iff
+j <= ``cache_index + i``; the kernel's causal alignment on ``k_len`` gives
+the same keys, and it never reads the rows past ``k_len``. A Python-int
+``cache_index`` is checked against the cache's length on the host (the
+reference clamps a write past the end; the port raises); a tensor index is
+not read on the host, so its caller (``generate``) keeps it in range.
 
 Tensor-parallel sharding (``shard_params_tp``, ``shard_kv_caches_tp``)
 belongs to a later slice of the port.
@@ -33,7 +38,7 @@ belongs to a later slice of the port.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -136,11 +141,12 @@ def apply_rope(x, cos, sin):
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-def causal_attention(q, k, v):
-    """Causal attention of q (B, T, H, D) over k, v (B, S, KV, D), S >= T,
-    bottom-right aligned: query i (at position S - T + i) sees keys
-    j <= S - T + i. Query head n reads KV head n // (H / KV). Returns
-    (B, T, H, D) in q's dtype."""
+def causal_attention(q, k, v, k_len: Optional[torch.Tensor] = None):
+    """Causal attention of q (B, T, H, D) over k, v (B, S, KV, D),
+    bottom-right aligned on the live key length L (``k_len``, a 0-d int32
+    tensor on q's device; S without one): query i (at position L - T + i)
+    sees keys j <= L - T + i, and no key j >= L. Query head n reads KV head
+    n // (H / KV). Returns (B, T, H, D) in q's dtype."""
     from ray_tpu_torch.ops import flash_attention
 
     rep = q.shape[2] // k.shape[2]
@@ -149,7 +155,33 @@ def causal_attention(q, k, v):
         v = v.repeat_interleave(rep, dim=2)
     bhsd = lambda t: t.transpose(1, 2)
     return flash_attention(bhsd(q), bhsd(k.to(q.dtype)), bhsd(v.to(q.dtype)),
-                           causal=True).transpose(1, 2)
+                           causal=True, k_len=k_len).transpose(1, 2)
+
+
+class CacheSlots(NamedTuple):
+    """Where a cached forward's T tokens go: ``rows`` (T,) int64, their
+    rows of the cache, and ``k_len``, the live length after them (0-d
+    int32); both on the device, made once per forward for every layer."""
+    rows: torch.Tensor
+    k_len: torch.Tensor
+
+
+def _check_in_cache(index: int, T: int, cache_len: int) -> None:
+    if index + T > cache_len:
+        raise ValueError(f"positions {index}..{index + T - 1} run past the "
+                         f"cache's {cache_len}")
+
+
+def cache_slots(cache_index: Union[int, torch.Tensor], T: int,
+                cache_len: int, device) -> CacheSlots:
+    """``CacheSlots`` for T tokens from ``cache_index``, an int (checked
+    against ``cache_len`` on the host) or a 0-d integer device tensor (not
+    read on the host)."""
+    if not isinstance(cache_index, torch.Tensor):
+        _check_in_cache(cache_index, T, cache_len)
+        cache_index = torch.tensor(cache_index, device=device)
+    rows = cache_index.long() + torch.arange(T, device=device)
+    return CacheSlots(rows, (rows[-1] + 1).to(torch.int32))
 
 
 class LlamaAttention(nn.Module):
@@ -163,11 +195,11 @@ class LlamaAttention(nn.Module):
         self.o_proj = Dense(c.n_head * d, c.n_embd, c.dtype, bias=False)
 
     def forward(self, x, positions, kv_cache: Optional[KVCache] = None,
-                cache_index: Optional[int] = None):
+                slots: Optional[CacheSlots] = None):
         """Full-sequence causal pass when ``kv_cache`` is None; otherwise
-        x's T tokens sit at ``cache_index`` ... ``cache_index + T - 1``:
-        their K and V are written into the cache (B, L, n_kv_head, D) in
-        place and they attend over the cache's live part."""
+        x's T tokens sit at the cache rows ``slots.rows``: their K and V
+        are written into the cache (B, L, n_kv_head, D) in place and they
+        attend over the whole cache, live up to ``slots.k_len``."""
         c = self.config
         B, T, _ = x.shape
         d = c.head_dim
@@ -177,16 +209,13 @@ class LlamaAttention(nn.Module):
         cos, sin = rope_frequencies(d, positions, c.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+        k_len = None
         if kv_cache is not None:
             ck, cv = kv_cache
-            end = cache_index + T
-            if end > ck.shape[1]:
-                raise ValueError(f"positions {cache_index}..{end - 1} run "
-                                 f"past the cache's {ck.shape[1]}")
-            ck[:, cache_index:end] = k
-            cv[:, cache_index:end] = v
-            k, v = ck[:, :end], cv[:, :end]
-        y = causal_attention(q, k, v)
+            ck.index_copy_(1, slots.rows, k.to(ck.dtype))
+            cv.index_copy_(1, slots.rows, v.to(cv.dtype))
+            k, v, k_len = ck, cv, slots.k_len
+        y = causal_attention(q, k, v, k_len)
         return self.o_proj(y.reshape(B, T, c.n_head * d))
 
 
@@ -214,9 +243,8 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(c)
 
     def forward(self, x, positions, kv_cache: Optional[KVCache] = None,
-                cache_index: Optional[int] = None):
-        x = x + self.attn(self.input_norm(x), positions, kv_cache,
-                          cache_index)
+                slots: Optional[CacheSlots] = None):
+        x = x + self.attn(self.input_norm(x), positions, kv_cache, slots)
         return x + self.mlp(self.post_attn_norm(x))
 
 
@@ -231,14 +259,21 @@ class Llama(nn.Module):
 
     def forward(self, input_ids, positions=None,
                 kv_caches: Optional[List[KVCache]] = None,
-                cache_index: Optional[int] = None):
+                cache_index: Optional[Union[int, torch.Tensor]] = None):
         """Returns (logits, kv_caches). ``kv_caches`` is a list of
         per-layer (k, v) for decode, written in place and handed back, or
-        None for prefill/training (then the second result is None)."""
+        None for prefill/training (then the second result is None).
+        ``cache_index``, the cache row of the first token, is an int
+        (checked on the host) or a 0-d device tensor (see the module's
+        note)."""
         c = self.config
         B, T = input_ids.shape
-        if kv_caches is not None and cache_index is None:
-            raise ValueError("kv_caches needs a cache_index")
+        slots = None
+        if kv_caches is not None:
+            if cache_index is None:
+                raise ValueError("kv_caches needs a cache_index")
+            slots = cache_slots(cache_index, T, kv_caches[0][0].shape[1],
+                                input_ids.device)
         if positions is None:
             positions = torch.arange(T, device=input_ids.device).expand(B, T)
         x = self.embed(input_ids).to(c.dtype)
@@ -250,7 +285,7 @@ class Llama(nn.Module):
                 x = checkpoint(block, x, positions, use_reentrant=False)
             else:
                 cache = None if kv_caches is None else kv_caches[i]
-                x = block(x, positions, cache, cache_index)
+                x = block(x, positions, cache, slots)
         logits = self.lm_head(self.norm(x))
         return logits, kv_caches
 
@@ -327,11 +362,16 @@ def init_kv_caches(config: LlamaConfig, batch_size: int,
 
 
 @torch.inference_mode()
-def _decode_step(model: Llama, token, index: int, caches: List[KVCache]):
-    index = int(index)
+def _decode_step(model: Llama, token, index: Union[int, torch.Tensor],
+                 caches: List[KVCache]):
+    """One token per sequence at cache row ``index``: an int, checked
+    against the caches' length on the host, or a 0-d integer tensor on the
+    device, which no part of the step reads on the host."""
     B = token.shape[0]
-    positions = torch.full((B, 1), index, dtype=torch.long,
-                           device=token.device)
+    if not isinstance(index, torch.Tensor):
+        _check_in_cache(index, 1, caches[0][0].shape[1])
+        index = torch.tensor(index, device=token.device)
+    positions = index.long().reshape(1, 1).expand(B, 1)
     logits, caches = model(token, positions=positions, kv_caches=caches,
                            cache_index=index)
     return logits[:, -1, :], caches
@@ -349,7 +389,8 @@ def _prefill(model: Llama, ids, caches: List[KVCache]):
 def build_decode_step(model: Llama):
     """Single-token decode: (token (B, 1), index, caches) ->
     (next-token logits (B, vocab), caches), the caches written in place at
-    ``index``. Runs under ``torch.inference_mode()``."""
+    ``index`` (an int, or a 0-d device tensor; see ``_decode_step``).
+    Every step has the same shapes. Runs under ``torch.inference_mode()``."""
     return lambda token, index, caches: _decode_step(model, token, index,
                                                      caches)
 
@@ -370,6 +411,9 @@ def generate(model: Llama, prompt_ids: torch.Tensor, max_new_tokens: int,
         caches = init_kv_caches(model.config, B, max_len=T + max_new_tokens,
                                 device=device)
         logits, caches = _prefill(model, prompt_ids, caches)
+        # the decode steps' cache row, on the device, advanced in place; the
+        # caches hold T + max_new_tokens rows, so it never runs past them
+        index = torch.tensor(T, device=device)
         out = [prompt_ids]
         for i in range(max_new_tokens):
             if temperature > 0.0:
@@ -380,7 +424,8 @@ def generate(model: Llama, prompt_ids: torch.Tensor, max_new_tokens: int,
             tok = tok.to(prompt_ids.dtype)
             out.append(tok)
             if i + 1 < max_new_tokens:
-                logits, caches = _decode_step(model, tok, T + i, caches)
+                logits, caches = _decode_step(model, tok, index, caches)
+                index += 1
         return torch.cat(out, dim=1)
 
 

@@ -85,7 +85,8 @@ def build(source: Path) -> Tuple[Path, float]:
 def ptxas_summary(library: Path) -> Dict[str, str]:
     """{kernel/type/D: "N registers, M bytes spilled"} from the
     ``-Xptxas -v`` log that ``build`` left beside ``library`` (empty when
-    there is none)."""
+    there is none); a kernel built with a live key length (the template
+    flag after D set) is keyed kernel/type/D/k_len."""
     log = library.with_suffix(".log")
     if not log.exists():
         return {}
@@ -94,10 +95,11 @@ def ptxas_summary(library: Path) -> Dict[str, str]:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-            t = re.search(r"(flash_[a-z_]+_kernel)I(\w+?)Li(\d+)E", name)
+            t = re.search(r"(flash_[a-z_]+_kernel)I(\w+?)Li(\d+)E(Lb1E)?",
+                          name)
             if t:
                 name = (f"{t.group(1)}/{t.group(2).lstrip('0123456789_')}"
-                        f"/{t.group(3)}")
+                        f"/{t.group(3)}" + ("/k_len" if t.group(4) else ""))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             out[name] = f"{m.group(1)} bytes spilled"

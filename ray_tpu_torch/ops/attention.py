@@ -25,6 +25,14 @@ PyTorch counterpart of ``ray_tpu/ops/attention.py``:
 Masking: the causal mask is bottom-right aligned (query i sees key j when
 ``i + (k_len - q_len) >= j``). Rows with no live column give out = 0 and
 lse = +inf on every path but ``attention_reference``.
+
+Live key length: the forward paths take an optional ``k_len``, a 0-d int32
+tensor on q's device, clamped to [0, Sk]. Keys ``j >= k_len`` are dead and
+``k_len`` takes Sk's place in the causal alignment, so a decode step can hand
+the kernel a whole static cache of Sk rows whose first ``k_len`` are filled.
+The kernel reads it on the device; no path reads it on the host. It has no
+backward (the reference has none): ``flash_attention`` raises if a gradient
+is needed.
 """
 
 from __future__ import annotations
@@ -102,22 +110,29 @@ def finalize_flash(m, l, acc, dtype):
 
 
 def _flash_plain(q, k, v, *, causal: bool, sm_scale: float,
-                 block_k: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+                 block_k: int = 128, k_len: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blockwise online softmax over (..., s, d): (out, lse), f32 inside.
-    The plain version of the kernel, and the CPU path."""
+    The plain version of the kernel, and the CPU path. ``k_len`` (a 0-d
+    tensor) masks the keys past it as tensor ops, without reading it on the
+    host."""
     *lead, q_len, d = q.shape
-    k_len = k.shape[-2]
-    block_k = min(block_k, k_len)
+    if k_len is None:
+        k_len = k.shape[-2]
+    else:
+        k_len = k_len.clamp(0, k.shape[-2])
+    block_k = min(block_k, k.shape[-2])
     m = torch.full((*lead, q_len), -math.inf, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((*lead, q_len), dtype=torch.float32, device=q.device)
     acc = torch.zeros((*lead, q_len, d), dtype=torch.float32, device=q.device)
-    for k0 in range(0, k_len, block_k):
+    live_tail = isinstance(k_len, torch.Tensor)
+    for k0 in range(0, k.shape[-2], block_k):
         m, l, acc = online_block_update(
             q, k[..., k0:k0 + block_k, :], v[..., k0:k0 + block_k, :],
             m, l, acc, sm_scale=sm_scale, q_offset=k_len - q_len,
             k_offset=k0, causal=causal,
-            k_total=k_len if k0 + block_k > k_len else None)
+            k_total=k_len if live_tail or k0 + block_k > k_len else None)
     lse = torch.where(l == 0.0, math.inf,
                       torch.where(torch.isfinite(m), m, 0.0)
                       + torch.log(torch.where(l == 0.0, 1.0, l)))
@@ -211,7 +226,7 @@ def _load_kernel() -> ctypes.CDLL:
 
         lib = _build.load(_SOURCE)
         lib.flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-            + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         lib.flash_fwd.restype = ctypes.c_int
         lib.flash_fwd_tensor_cores.argtypes = [ctypes.c_int]
         lib.flash_fwd_tensor_cores.restype = ctypes.c_int
@@ -310,10 +325,21 @@ def _check_bwd_inputs(kernel, q, k, v, do, lse, delta):
                              f"on {q.device}")
 
 
-def _flash_kernel(q, k, v, *, causal: bool, sm_scale: float):
+def _check_k_len(k_len, q):
+    if k_len is None:
+        return
+    if (not isinstance(k_len, torch.Tensor) or k_len.dim() != 0
+            or k_len.dtype != torch.int32 or k_len.device != q.device):
+        raise ValueError("k_len must be a 0-d int32 tensor on q's device "
+                         f"({q.device})")
+
+
+def _flash_kernel(q, k, v, *, causal: bool, sm_scale: float,
+                  k_len: Optional[torch.Tensor] = None):
     global flash_fwd_launches
     _check_kernel_inputs(q, k, v)
     _check_aligned("flash_fwd", q=q, k=k, v=v)
+    _check_k_len(k_len, q)
     lib = _load_kernel()
     bh, q_len, d = q.shape
     out = torch.empty_like(q)
@@ -323,7 +349,9 @@ def _flash_kernel(q, k, v, *, causal: bool, sm_scale: float):
         err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             out.data_ptr(), lse.data_ptr(), bh, q_len,
                             k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal),
-                            float(sm_scale), stream)
+                            float(sm_scale),
+                            None if k_len is None else k_len.data_ptr(),
+                            stream)
     if err != 0:
         raise RuntimeError("flash_fwd kernel launch failed: "
                            + lib.flash_fwd_error_string(err).decode())
@@ -382,16 +410,20 @@ def _flash_bwd_kernel(q, k, v, out, lse, do, *, causal: bool,
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False,
-                        sm_scale: Optional[float] = None):
+                        sm_scale: Optional[float] = None,
+                        k_len: Optional[torch.Tensor] = None):
     """(out, lse) for folded (B*H, S, D) inputs; lse is (B*H, Sq) f32.
+    ``k_len``: the live key length (see the module's note), or None.
 
     A CUDA tensor goes through the sm_90a kernel (or this raises); a CPU
     tensor goes through the plain blockwise version."""
     sm_scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if q.is_cuda:
-        return _flash_kernel(q, k, v, causal=causal, sm_scale=sm_scale)
+        return _flash_kernel(q, k, v, causal=causal, sm_scale=sm_scale,
+                             k_len=k_len)
     if q.device.type == "cpu":
-        return _flash_plain(q, k, v, causal=causal, sm_scale=sm_scale)
+        return _flash_plain(q, k, v, causal=causal, sm_scale=sm_scale,
+                            k_len=k_len)
     raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
 
 
@@ -419,8 +451,8 @@ class _FlashAttention(torch.autograd.Function):
     counterpart of the JAX package's ``_flash_pallas_diff``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float, k_len=None):
+        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale, k_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
@@ -430,26 +462,32 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
                                          ctx.causal, ctx.sm_scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None, block_k: int = 128,
-                    impl: Optional[str] = None) -> torch.Tensor:
+                    impl: Optional[str] = None,
+                    k_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Differentiable flash attention over (b, h, s, d) or (b, s, d) inputs.
 
     ``impl``: None runs ``_FlashAttention`` (the forward and backward
     kernels on CUDA tensors, their plain versions on CPU tensors);
     "kernel" is the same but a CPU tensor raises; "plain" is the blockwise
     PyTorch forward (k-blocks of ``block_k``) with autograd through its
-    ops; "reference" the naive version.
+    ops; "reference" the naive version. ``k_len``: the live key length (a
+    0-d int32 tensor, see the module's note), forward only; "reference"
+    does not take it.
     """
     sm_scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if impl == "reference":
+        if k_len is not None:
+            raise ValueError("flash_attention(impl='reference') takes no "
+                             "k_len")
         return attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
     if impl == "plain":
         return _flash_plain(q, k, v, causal=causal, sm_scale=sm_scale,
-                            block_k=block_k)[0]
+                            block_k=block_k, k_len=k_len)[0]
     if impl not in (None, "kernel"):
         raise ValueError(f"unknown flash_attention impl {impl!r}")
     if impl == "kernel" and not q.is_cuda:
@@ -457,6 +495,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
                          f"got {q.device}")
     # folded contiguous for the kernels; autograd carries the grads back to
     # the caller's layout through the reshapes
+    if k_len is not None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash attention with k_len has no backward: run "
+                         "it without gradients (torch.inference_mode)")
     fold = lambda t: t.reshape(-1, t.shape[-2], t.shape[-1]).contiguous()
-    out = _FlashAttention.apply(fold(q), fold(k), fold(v), causal, sm_scale)
+    out = _FlashAttention.apply(fold(q), fold(k), fold(v), causal, sm_scale,
+                                k_len)
     return out.reshape(q.shape)

@@ -14,6 +14,17 @@
 //   - rows with no live column give out = 0 and lse = +inf, as on the TPU.
 // The causal mask is bottom-right aligned: query row i sees key column j when
 // j <= i + (Sk - Sq). k-tiles wholly above the diagonal are never loaded.
+// An optional live key length k_len, a device int read by each CTA (never by
+// the host), makes keys j >= k_len dead and takes Sk's place in the causal
+// alignment: query i sees key j iff j < k_len and j <= i + (k_len - Sq). The
+// k-tile loop ends at k_len, so a decode over a whole static cache of Sk rows
+// reads only its live part. Each kernel is built twice, on the template flag
+// LIVE: without a k_len (null) the length is Sk, a kernel parameter, and the
+// code is that of the kernel before k_len existed (one build choosing at run
+// time cost 13-33 % at every shape, PERF.md); with one, thread 0 reads it and
+// the CTA takes it from shared memory after a barrier, which costs nothing
+// measurable, where a read by every thread cost 17-20 % at the Llama decode
+// and prefill shapes (tools/live_ab.py).
 //
 // What bounds it on an H100: at the training shape (B*H 192, S 1024, D 64,
 // causal, bf16) the kernel must move ~51 MB (q, k, v read once, out and lse
@@ -61,7 +72,7 @@
 //
 // Layout: q (B*H, Sq, D), k and v (B*H, Sk, D), o like q, all contiguous in
 // one dtype (f32, f16 or bf16), 16-byte aligned for f16 and bf16; lse
-// (B*H, Sq) f32. Head dims 16, 32, 64, 128. The C entry returns
+// (B*H, Sq) f32; k_len, where given, one int32 on the device. Head dims 16, 32, 64, 128. The C entry returns
 // cudaGetLastError() after the launch; 0 is success.
 
 #include <cuda_bf16.h>
@@ -94,6 +105,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// The live key length: *k_len clamped to [0, sk] when LIVE, else sk. All
+// threads of the CTA call it, once, before any other barrier.
+template <bool LIVE>
+__device__ __forceinline__ int live_keys(const int* k_len, int sk) {
+  if constexpr (LIVE) {
+    __shared__ int live;
+    if (threadIdx.x == 0) live = __ldg(k_len);
+    __syncthreads();
+    return min(max(live, 0), sk);
+  } else {
+    return sk;
+  }
+}
+
 // Shared memory, in floats: Q tile and K tile padded by one column so that the
 // 8 rows a warp reads fall in different banks; V tile; P tile padded likewise.
 template <int D>
@@ -101,12 +126,12 @@ constexpr int smem_floats() {
   return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LIVE>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int causal,
-                 float sm_scale) {
+                 float sm_scale, const int* __restrict__ k_len) {
   constexpr int ND = D / TPR;   // output columns each thread accumulates
   extern __shared__ float smem[];
   float* qs = smem;                    // [BQ][D + 1], pre-scaled by sm_scale
@@ -120,7 +145,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = tid / TPR;             // this thread's query row in the tile
   const int c = tid % TPR;             // its lane within the row's group
   const int gq = q0 + r;
-  const int offset = sk - sq;          // bottom-right causal alignment
+  const int skl = live_keys<LIVE>(k_len, sk);
+  const int offset = skl - sq;         // bottom-right causal alignment
   const T* qb = q + (size_t)bh * sq * D;
   const T* kb = k + (size_t)bh * sk * D;
   const T* vb = v + (size_t)bh * sk * D;
@@ -133,8 +159,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // k columns any row of this tile can see: the causal skip of dead k-tiles
-  int kend = sk;
-  if (causal) kend = min(sk, min(q0 + BQ, sq) - 1 + offset + 1);
+  int kend = skl;
+  if (causal) kend = min(skl, min(q0 + BQ, sq) - 1 + offset + 1);
 
   float acc[ND];
 #pragma unroll
@@ -148,7 +174,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * D; i += NT) {
       const int row = i / D, col = i % D;
       const int g = k0 + row;
-      const bool in = g < sk;
+      const bool in = g < skl;
       ks[row * (D + 1) + col] = in ? to_f32(kb[(size_t)g * D + col]) : 0.f;
       vs[row * D + col] = in ? to_f32(vb[(size_t)g * D + col]) : 0.f;
     }
@@ -165,7 +191,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float dot = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-      const bool live = g < sk && (!causal || g <= gq + offset);
+      const bool live = g < skl && (!causal || g <= gq + offset);
       s[jj] = live ? dot : -INFINITY;
       tmax = fmaxf(tmax, s[jj]);
     }
@@ -228,12 +254,12 @@ constexpr int fwd_mma_smem_bytes() {  // the Q tile; K and V twice; in T
   return (BM + 4 * BK) * (D + 8) * 2;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LIVE>
 __global__ void __launch_bounds__(MT)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int sq, int sk, int causal,
-                     float sm_scale) {
+                     float sm_scale, const int* __restrict__ k_len) {
   constexpr int RS = D + 8;             // shared row stride, elements
   constexpr int KV = BK * RS;           // one K or V tile
   constexpr bool KEEP = D <= 64;        // Q fragments in registers
@@ -250,20 +276,21 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int offset = sk - sq;               // bottom-right causal alignment
+  const int skl = live_keys<LIVE>(k_len, sk);
+  const int offset = skl - sq;              // bottom-right causal alignment
   const int gq0 = q0 + warp * 16 + g;       // this thread's rows: gq0, gq0 + 8
   const T* kb = k + (size_t)bh * sk * D;
   const T* vb = v + (size_t)bh * sk * D;
 
-  int kend = sk;   // k columns any row of this tile can see
-  if (causal) kend = min(sk, min(q0 + BM, sq) + offset);
+  int kend = skl;  // k columns any row of this tile can see
+  if (causal) kend = min(skl, min(q0 + BM, sq) + offset);
   const int n = kend > 0 ? (kend + BK - 1) / BK : 0;
 
   load_tile<T, D>(qs, q + (size_t)bh * sq * D, q0, sq);
   cp_commit();
   if (n > 0) {
-    load_tile<T, D>(kvs, kb, 0, sk);
-    load_tile<T, D>(kvs + KV, vb, 0, sk);
+    load_tile<T, D>(kvs, kb, 0, skl);
+    load_tile<T, D>(kvs + KV, vb, 0, skl);
   }
   cp_commit();
 
@@ -290,15 +317,15 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = it * BK;
     if (it + 1 < n) {
       T* nb = kvs + ((it + 1) & 1) * 2 * KV;
-      load_tile<T, D>(nb, kb, k0 + BK, sk);
-      load_tile<T, D>(nb + KV, vb, k0 + BK, sk);
+      load_tile<T, D>(nb, kb, k0 + BK, skl);
+      load_tile<T, D>(nb + KV, vb, k0 + BK, skl);
     }
     cp_commit();
     cp_wait<1>();     // tile `it` has landed
     __syncthreads();
     const T* kt = kvs + (it & 1) * 2 * KV;
     const T* vt = kt + KV;
-    const bool masked = (causal && k0 + BK - 1 > q0 + offset) || k0 + BK > sk;
+    const bool masked = (causal && k0 + BK - 1 > q0 + offset) || k0 + BK > skl;
 
     // S = Q K^T for this warp's 16 rows x BK columns
     float s[NS][4];
@@ -331,7 +358,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float x = s[nt][e] * c2;
         if (masked) {
           const int gk = k0 + nt * 8 + 2 * t + (e & 1);
-          if (gk >= sk || (causal && gk > gq0 + 8 * (e >> 1) + offset)) x = -INFINITY;
+          if (gk >= skl || (causal && gk > gq0 + 8 * (e >> 1) + offset)) x = -INFINITY;
         }
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -425,35 +452,37 @@ struct Args {
   void *o, *lse;
   int bh, sq, sk, causal;
   float sm_scale;
+  const int* k_len;   // device pointer or null
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool LIVE>
 cudaError_t launch_cuda_cores(const Args& a) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<T, D, LIVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return e;
   dim3 grid(a.bh, (a.sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, a.stream>>>(
+  flash_fwd_kernel<T, D, LIVE><<<grid, NT, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
-      static_cast<float*>(a.lse), a.sq, a.sk, a.causal, a.sm_scale);
+      static_cast<float*>(a.lse), a.sq, a.sk, a.causal, a.sm_scale, a.k_len);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LIVE>
 cudaError_t launch_mma(const Args& a) {
   const int smem = fwd_mma_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<T, D>,
+      flash_fwd_mma_kernel<T, D, LIVE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(a.bh, (a.sq + BM - 1) / BM);
-  flash_fwd_mma_kernel<T, D><<<grid, MT, smem, a.stream>>>(
+  flash_fwd_mma_kernel<T, D, LIVE><<<grid, MT, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
-      static_cast<float*>(a.lse), a.sq, a.sk, a.causal, a.sm_scale);
+      static_cast<float*>(a.lse), a.sq, a.sk, a.causal, a.sm_scale, a.k_len);
   return cudaGetLastError();
 }
 
@@ -462,12 +491,17 @@ cudaError_t launch_mma(const Args& a) {
 // A build compiles only the kernels it runs.
 constexpr bool kTensorCores = true;  // design switch (fwd_ab.py)
 
+template <typename T, int D, bool LIVE>
+cudaError_t launch_design(const Args& a) {
+  if constexpr (kTensorCores && !std::is_same<T, float>::value)
+    return launch_mma<T, D, LIVE>(a);
+  else
+    return launch_cuda_cores<T, D, LIVE>(a);
+}
+
 template <typename T, int D>
 cudaError_t launch_one(const Args& a) {
-  if constexpr (kTensorCores && !std::is_same<T, float>::value)
-    return launch_mma<T, D>(a);
-  else
-    return launch_cuda_cores<T, D>(a);
+  return a.k_len ? launch_design<T, D, true>(a) : launch_design<T, D, false>(a);
 }
 
 template <typename T>
@@ -483,13 +517,16 @@ cudaError_t launch_d(int d, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16.
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16. k_len: a device pointer to
+// one int32, the live key length, or null.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int sq, int sk, int d, int dtype,
-                         int causal, float sm_scale, void* stream) {
+                         int causal, float sm_scale, const void* k_len,
+                         void* stream) {
   if (bh < 1 || sq < 1 || sk < 1 || (sq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, lse, bh, sq, sk, causal, sm_scale,
+               static_cast<const int*>(k_len),
                static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0: return (int)launch_d<float>(d, a);

@@ -13,13 +13,17 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.models import gpt2, llama
-from ray_tpu_torch.tools.train_runs import grad_rel_errs, plain_attention
+from ray_tpu_torch.tools.train_runs import (
+    capture_attention,
+    grad_rel_errs,
+    plain_attention,
+)
 
 
 def _sync(device: torch.device) -> None:
@@ -44,9 +48,11 @@ def teacher_forced_logits(model: llama.Llama, tokens: torch.Tensor,
                                   device=tokens.device)
     logits, caches = llama._prefill(model, tokens[:, :prompt_len], caches)
     out = [logits]
+    index = torch.tensor(prompt_len, device=tokens.device)
     for t in range(prompt_len, S - 1):
-        logits, caches = llama._decode_step(model, tokens[:, t:t + 1], t,
+        logits, caches = llama._decode_step(model, tokens[:, t:t + 1], index,
                                             caches)
+        index += 1
         out.append(logits)
     return out
 
@@ -73,6 +79,27 @@ def logit_errors(got: List[torch.Tensor], want: List[torch.Tensor]
     return {"max_abs_err": float(err.max()),
             "max_rel_to_max": float(err.max() / w.abs().max()),
             "rel_norm": float((g - w).norm() / w.norm())}
+
+
+def attention_inputs(model: llama.Llama, tokens: torch.Tensor,
+                     prompt_len: int, layers: Sequence[int]
+                     ) -> List[Tuple[str, Tuple[torch.Tensor, ...], dict]]:
+    """The inputs the model hands flash attention at ``layers`` during
+    the prefill of ``tokens[:, :prompt_len]`` and during the decode step of
+    the token at ``prompt_len``: (label, (q, k, v) folded to (B*H, S, D) as
+    the kernel takes them, the call's keywords: ``causal`` and the live
+    length ``k_len``)."""
+    B, S = tokens.shape
+    device = tokens.device
+    caches = llama.init_kv_caches(model.config, B, S, device=device)
+    with capture_attention(layers) as prefill:
+        llama._prefill(model, tokens[:, :prompt_len], caches)
+    with capture_attention(layers) as decode:
+        llama._decode_step(model, tokens[:, prompt_len:prompt_len + 1],
+                           torch.tensor(prompt_len, device=device), caches)
+    return [(f"{step} layer {i}", *calls[i])
+            for step, calls in (("prefill", prefill), ("decode", decode))
+            for i in layers]
 
 
 def decode_equals_full_pass(model: llama.Llama, ids: torch.Tensor) -> float:
@@ -105,8 +132,9 @@ def time_steps(model: llama.Llama, tokens: torch.Tensor, prompt_len: int,
                ) -> Dict[str, object]:
     """The steps of ``generate`` again on the tokens it produced: the
     prefill of ``tokens[:, :prompt_len]`` (host clock to a sync), then one
-    decode step per later token but the last, with one sync after the last
-    (so the host runs ahead as in ``generate``). ``counts``, a pair of
+    decode step per later token but the last, at a device index advanced in
+    place, with one sync after the last (so the host runs ahead as in
+    ``generate``). ``counts``, a pair of
     functions (zero, read) of the kernels' launch counts, adds the launches
     of the prefill and of the decode steps, each zeroed just before and
     read just after, outside the timed spans."""
@@ -121,10 +149,13 @@ def time_steps(model: llama.Llama, tokens: torch.Tensor, prompt_len: int,
     _sync(device)
     t1 = time.perf_counter()
     prefill_launches = read()
+    index = torch.tensor(prompt_len, device=device)
     zero()
     t2 = time.perf_counter()
     for t in range(prompt_len, S - 1):
-        _, caches = llama._decode_step(model, tokens[:, t:t + 1], t, caches)
+        _, caches = llama._decode_step(model, tokens[:, t:t + 1], index,
+                                       caches)
+        index += 1
     _sync(device)
     t3 = time.perf_counter()
     decode_launches = read()

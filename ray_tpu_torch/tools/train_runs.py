@@ -17,7 +17,7 @@ import contextlib
 import functools
 import statistics
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -41,6 +41,35 @@ def plain_attention():
     ops.flash_attention = functools.partial(kernel_path, impl="plain")
     try:
         yield
+    finally:
+        ops.flash_attention = kernel_path
+
+
+@contextlib.contextmanager
+def capture_attention(calls: Sequence[int]):
+    """Record what the model hands flash attention: yields a dict that
+    fills, for each call number in ``calls`` (counted from 0 in the order
+    the calls are made, one per layer in a forward), with (q, k, v) folded
+    to (B*H, S, D) as the kernel takes them (copies) and the call's
+    keywords. The calls still run the kernel path."""
+    import ray_tpu_torch.ops as ops
+
+    kernel_path = ops.flash_attention
+    seen: Dict[int, Tuple[Tuple[torch.Tensor, ...], dict]] = {}
+    count = 0
+
+    def recording(q, k, v, **kw):
+        nonlocal count
+        if count in calls:
+            fold = lambda t: t.detach().reshape(-1, *t.shape[-2:]).clone(
+                memory_format=torch.contiguous_format)
+            seen[count] = (tuple(fold(t) for t in (q, k, v)), kw)
+        count += 1
+        return kernel_path(q, k, v, **kw)
+
+    ops.flash_attention = recording
+    try:
+        yield seen
     finally:
         ops.flash_attention = kernel_path
 

@@ -167,6 +167,79 @@ def test_plain_calls_do_not_count_as_launches():
     assert tattn.flash_fwd_launches == before
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq", [1, 5])
+def test_plain_k_len_equals_the_live_slice(sq, causal):
+    """The forward's plain version (the CPU path) with a live length
+    ``k_len`` (a 0-d int32 tensor) over a static cache of 40 rows equals it
+    on the live slice ``[:k_len]``, whatever the rows past it hold: at
+    k_len 1 (with Sq 5 and the causal mask, rows 0..3 see no key: out 0,
+    lse +inf), 9, 33 and 40."""
+    rng = np.random.default_rng(20 + sq)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, s, 16),
+                                                    dtype=np.float32))
+               for s in (sq, 40, 40))
+    for k_len in (1, 9, 33, 40):
+        tail_k, tail_v = k.clone(), v.clone()
+        tail_k[:, k_len:] *= 1e4
+        tail_v[:, k_len:] *= 1e4
+        out, lse = tattn.flash_attention_fwd(
+            q, tail_k, tail_v, causal,
+            k_len=torch.tensor(k_len, dtype=torch.int32))
+        ref, ref_lse = tattn.flash_attention_fwd(q, k[:, :k_len],
+                                                 v[:, :k_len], causal)
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6,
+                                   rtol=1e-6)
+        assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+        live = torch.isfinite(ref_lse)
+        np.testing.assert_allclose(lse[live].numpy(), ref_lse[live].numpy(),
+                                   atol=1e-6, rtol=1e-6)
+        assert not out[~live].any()
+
+
+def test_k_len_has_no_backward():
+    """The reference has no backward for a live length: given ``k_len``,
+    flash attention raises if a gradient is needed, and runs without
+    one."""
+    q, k, v = (torch.randn(2, 3, s, 16, requires_grad=True)
+               for s in (1, 12, 12))
+    k_len = torch.tensor(7, dtype=torch.int32)
+    with pytest.raises(ValueError, match="no backward"):
+        tattn.flash_attention(q, k, v, causal=True, k_len=k_len)
+    with torch.inference_mode():
+        out = tattn.flash_attention(q, k, v, causal=True, k_len=k_len)
+    assert out.shape == q.shape
+    with torch.no_grad():
+        plain = tattn.flash_attention(q, k, v, causal=True, k_len=k_len,
+                                      impl="plain")
+    assert torch.equal(out, plain)
+    with pytest.raises(ValueError, match="k_len"):
+        tattn.flash_attention(q, k, v, k_len=k_len, impl="reference")
+
+
+def test_ptxas_summary_keys_the_live_length_builds(tmp_path):
+    """``flash_fwd.cu`` builds each forward kernel with and without a live
+    length (template flag ``LIVE``): the two builds get their own keys, so
+    the build phase reports the registers and spills of both."""
+    from ray_tpu_torch.ops import _build
+
+    lib = tmp_path / "flash_fwd-89ab.so"
+    entry = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1"
+             "20flash_fwd_mma_kernelI13__nv_bfloat16Li128ELb{}EEEvPKT_' for "
+             "'sm_90a'\n")
+    props = ("ptxas info    : Function properties for x\n"
+             "    {0} bytes stack frame, {0} bytes spill stores, {0} bytes "
+             "spill loads\nptxas info    : Used {1} registers, used 1 "
+             "barriers\n")
+    lib.with_suffix(".log").write_text(entry.format(0) + props.format(0, 173)
+                                       + entry.format(1) + props.format(8, 168))
+    assert _build.ptxas_summary(lib) == {
+        "flash_fwd_mma_kernel/nv_bfloat16/128": "173 registers, 0 bytes "
+                                                "spilled",
+        "flash_fwd_mma_kernel/nv_bfloat16/128/k_len": "168 registers, 8 bytes "
+                                                      "spilled"}
+
+
 def _fwd_share_of_16_bit_limit(dtype, split, bh=4, s=256, d=64):
     """The tensor-core forward's arithmetic emulated on the CPU for one
     causal square input: S in f32 on the kernel's 64-column k-tiles with the
@@ -249,6 +322,17 @@ def test_fwd_ab_needs_a_card():
 
     assert not torch.cuda.is_available()
     assert fwd_ab.main([]) == 2
+
+
+def test_live_ab_needs_a_card_and_finds_its_variant_in_the_source():
+    """``tools/live_ab.py`` builds a copy of ``flash_fwd.cu`` with the
+    shared-memory read of ``k_len`` swapped for a read by every thread: the
+    text it swaps must be in the source."""
+    from ray_tpu_torch.tools import live_ab
+
+    assert live_ab.SHARED in tattn._SOURCE.read_text()
+    assert not torch.cuda.is_available()
+    assert live_ab.main([]) == 2
 
 
 def test_train_runs_plain_attention_and_grad_errors():

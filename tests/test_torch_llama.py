@@ -195,6 +195,62 @@ def test_live_slice_mask_equals_whole_cache_bias(sq):
     _close(out, ref, **TOL)
 
 
+@pytest.mark.parametrize("sq", [1, 5])
+def test_whole_cache_with_k_len_equals_the_reference_bias(sq):
+    """What the decode now hands the kernel: the whole static cache and the
+    live length ``k_len = index + Sq`` as a 0-d int32 tensor, against the
+    reference's -1e9 bias over the same cache (llama.py:145-151). The rows
+    past the live part hold noise, not zeros."""
+    rng = np.random.default_rng(18 + sq)
+    B, L, H, KV, D, index = 2, 24, 4, 2, 16, 9
+    q = rng.standard_normal((B, sq, H, D), dtype=np.float32)
+    ck = rng.standard_normal((B, L, KV, D), dtype=np.float32)
+    cv = rng.standard_normal((B, L, KV, D), dtype=np.float32)
+    q_pos = index + jnp.arange(sq)
+    bias = jnp.where(jnp.arange(L)[None, :] <= q_pos[:, None], 0.0, -1e9)
+    ref = jax.nn.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+        bias=bias[None, None, :, :].astype(jnp.float32))
+    out = tllama.causal_attention(
+        torch.from_numpy(q), torch.from_numpy(ck), torch.from_numpy(cv),
+        k_len=torch.tensor(index + sq, dtype=torch.int32))
+    _close(out, ref, **TOL)
+
+
+def test_whole_cache_decode_hands_the_kernel_static_shapes(monkeypatch):
+    """Every flash-attention call of ``generate``'s decode steps gets q, k,
+    v and ``k_len`` of the same (shape, dtype): the whole cache, after the
+    GQA repeat, and a 0-d int32 live length that advances by one per step.
+    So every decode step launches kernels of the same shapes."""
+    import ray_tpu_torch.ops as ops
+
+    _, _, tmodel = _models()
+    cfg = tmodel.config
+    kernel_path = ops.flash_attention
+    calls = []
+
+    def recording(q, k, v, **kw):
+        k_len = kw["k_len"]
+        calls.append((tuple((tuple(t.shape), t.dtype)
+                            for t in (q, k, v, k_len)), int(k_len)))
+        return kernel_path(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", recording)
+    _, prompt = _ids((2, 5), seed=19)
+    tllama.generate(tmodel, prompt, 4)   # caches of 9 rows
+    n = cfg.n_layer
+    assert len(calls) == 4 * n
+    prefill, decode = calls[:n], calls[n:]
+    shapes = {c[0] for c in decode}
+    assert len(shapes) == 1
+    (q, k, v, k_len), = shapes
+    assert q == ((2, cfg.n_head, 1, cfg.head_dim), torch.float32)
+    assert k == v == ((2, cfg.n_head, 9, cfg.head_dim), torch.float32)
+    assert k_len == ((), torch.int32)
+    assert [c[1] for c in prefill] == [5] * n
+    assert [c[1] for c in decode] == [6] * n + [7] * n + [8] * n
+
+
 def test_generate_greedy_matches_jax_and_sampling_needs_a_generator():
     jmodel, jparams, tmodel = _models()
     jprompt, tprompt = _ids((2, 4), seed=9)
@@ -436,6 +492,16 @@ def test_chip_runs_drive_the_paths_at_small_size_on_the_cpu():
     grads = llama_runs.grads_both(cfg, batch, device="cpu")
     assert grads["worst"] < 1e-4
     assert grads["loss_kernel"] == grads["loss_plain"]
+
+
+def test_decode_ab_needs_a_card():
+    import subprocess
+    import sys
+
+    script = REPO / "ray_tpu_torch" / "tools" / "decode_ab.py"
+    proc = subprocess.run([sys.executable, str(script), str(REPO)],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2 and "no CUDA device" in proc.stderr
 
 
 def test_port_import_walk_covers_the_llama_modules():
