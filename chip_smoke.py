@@ -114,6 +114,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    batch 256 of 32^2 images, AdamW (lr ``RESNET["lr"]``): 5 steps on one
    batch, finite losses, the last below the first, and no flash kernel
    launched (its convolutions are cuDNN's). Prints step ms and images/s.
+17. moe_train (runs before 15): the Switch-MoE LM, ``MoELMConfig()`` at full
+   width and depth (vocab 50257, 768 wide, 12 layers, 12 heads, 8 experts,
+   an MoE FFN in every second block, capacity factor 1.25; 322.6 M
+   parameters), bf16 over f32 weights with the MoE FFN in f32, batch 16 x
+   1024, AdamW at the reference's lr 3e-4: 5 steps on one batch with launch
+   counts zeroed just before the steps and read just after (12 of each
+   kernel per step), finite losses, the last below the first, aux finite
+   and above 0.1 at every step. Prints step ms, tokens/s, peak memory and
+   each MoE block's share of dropped tokens. Then the yardstick: the
+   reference's one-hot (T, E, C) dispatch in place of the index dispatch
+   for 2 steps on the same weights and batch; its first loss within 1e-6
+   relative of the index form's (the forward is the same to the bit), the
+   same drop shares, its step ms and peak memory. Then the f32 check, cut
+   to 2 layers at full width (one dense block, one MoE block), batch 2 x
+   256: one step's loss and gradients through the
+   kernels against the plain attention's at phase 7's limits, with 2
+   launches of each kernel on the kernel path and none on the plain path.
 15. kernels: per kernel its launches on its path, error, time (CUDA events)
    at that path's shape, the plain version's time, a PyTorch call as a
    yardstick (the port never calls it) and the least time the card could
@@ -122,7 +139,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    rows, k_len 512, D 128) and decode (B*H 128, Sq 1, cache 544, k_len
    543, D 128) shapes, and all three kernels at GPT-2's training shape
    (B*H 192, S 1024, D 64, causal, bf16), Llama's (B*H 64, S 2048, D 128)
-   and ViT-B/16's (B*H 768, S 197, D 64, non-causal), each held to the
+   ViT-B/16's (B*H 768, S 197, D 64, non-causal) and the MoE LM's (GPT-2's
+   training shape, the MoE path's launches), each held to the
    bf16 ``TOLS`` element by element
    (the line prints the tolerance and the largest error's share of its
    limit), with an estimate of attention's share of each training step.
@@ -134,7 +152,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    profiler's op names), its kernels' device time, and SDPA's own output
    error as a share of the bf16 limit against the same plain reference; the
    backward entries name the backend of SDPA's backward. ``device_ms`` is
-   the kernel's own time from the profiler; ``ms`` (CUDA events around many
+   the kernel's own time from the profiler (each of the three); ``ms``
+   (CUDA events around many
    calls) also holds the host's work per call, the larger part at the
    serving shape. Two launches of each backward kernel at the training
    shape must give the same bits.
@@ -145,6 +164,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    products' part, flash_fwd's part, the rest, the largest kernels)
    against phase 10's host clock of the same calls, and the device's idle
    share.
+18. moe_trace: one bf16 step of phase 17's model and batch, last, under the
+   profiler: the device's time by class (each flash kernel, matrix
+   products, the rest) and by the host op that launched it (the expert
+   products' ``bmm``, beside their least time at the f32 rate, the MoE
+   dispatch and combine's index ops),
+   the flash kernels' device ms per launch at B*H 192, S 1024, D 64 causal,
+   and the idle share against phase 17's median host-clock step.
 
 Every phase raises on a failed check; no failure is caught.
 
@@ -617,19 +643,20 @@ def _read_launches():
     return {name: getattr(attn, f"{name}_launches") for name in KERNELS}
 
 
-def phase_train_f32():
-    from ray_tpu_torch.models import gpt2
+def _f32_kernel_vs_plain(step_grads, n_layer):
+    """One f32 step's loss and gradients from the same weights through the
+    kernels and through the plain attention (``step_grads()`` -> (loss,
+    grads)): (fields, problems) at phase 7's limits, loss 1e-5 relative and
+    each gradient 1e-4 relative norm, with ``n_layer`` launches of each
+    kernel on the kernel path and none on the plain path."""
     from ray_tpu_torch.tools import train_runs
 
-    cfg = gpt2.GPT2Config.gpt2_124m(attention="flash", loss_chunks=8,
-                                    dtype=torch.float32)
-    batch = gpt2.synthetic_batch(4, 2, 256, cfg.vocab_size)
     runs = {}
     for path, ctx in (("kernel", contextlib.nullcontext),
                       ("plain", train_runs.plain_attention)):
         _zero_launches()
         with ctx():
-            loss, grads = train_runs.step_grads(cfg, batch)
+            loss, grads = step_grads()
         runs[path] = (loss, _read_launches(), grads)
     (kloss, klaunch, kgrads), (ploss, plaunch, pgrads) = \
         runs["kernel"], runs["plain"]
@@ -637,21 +664,34 @@ def phase_train_f32():
     grad = train_runs.grad_rel_errs(kgrads, pgrads)
     del runs, kgrads, pgrads
     torch.cuda.empty_cache()
-    emit("train_f32", loss_kernel=kloss, loss_plain=ploss,
-         loss_rel_err=loss_rel, worst_grad_rel_err=grad["worst"],
-         worst_grad_leaf=grad["worst_leaf"],
-         median_grad_rel_err=grad["median"], launches_kernel_path=klaunch,
-         launches_plain_path=plaunch,
-         tolerance={"loss": "1e-5 relative", "grads": "1e-4 relative norm "
-                    "per parameter (f32 sums in another order)"})
+    fields = dict(loss_kernel=kloss, loss_plain=ploss, loss_rel_err=loss_rel,
+                  worst_grad_rel_err=grad["worst"],
+                  worst_grad_leaf=grad["worst_leaf"],
+                  median_grad_rel_err=grad["median"],
+                  launches_kernel_path=klaunch, launches_plain_path=plaunch)
     problems = []
     if not (math.isfinite(kloss) and loss_rel <= 1e-5):
         problems.append(f"loss {kloss} vs plain {ploss}")
     if not grad["worst"] <= 1e-4:
         problems.append(f"{grad['worst_leaf']} gradient off by "
                         f"{grad['worst']}")
-    if klaunch != dict.fromkeys(KERNELS, 12) or any(plaunch.values()):
+    if klaunch != dict.fromkeys(KERNELS, n_layer) or any(plaunch.values()):
         problems.append(f"launches {klaunch} (kernel), {plaunch} (plain)")
+    return fields, problems
+
+
+def phase_train_f32():
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.tools import train_runs
+
+    cfg = gpt2.GPT2Config.gpt2_124m(attention="flash", loss_chunks=8,
+                                    dtype=torch.float32)
+    batch = gpt2.synthetic_batch(4, 2, 256, cfg.vocab_size)
+    fields, problems = _f32_kernel_vs_plain(
+        lambda: train_runs.step_grads(cfg, batch), cfg.n_layer)
+    emit("train_f32", **fields,
+         tolerance={"loss": "1e-5 relative", "grads": "1e-4 relative norm "
+                    "per parameter (f32 sums in another order)"})
     if problems:
         raise AssertionError("train_f32: " + "; ".join(problems))
 
@@ -1163,6 +1203,171 @@ def phase_resnet():
         raise AssertionError("resnet_train: " + "; ".join(problems))
 
 
+# Switch-MoE LM, ``MoELMConfig()`` (GPT-2 width, 12 layers, 8 experts, an
+# MoE FFN in every second block), bf16 over f32 weights, the MoE FFN in f32:
+# batch 16 x 1024, GPT-2's training shape, so that the two steps compare at
+# the same tokens; the reference's lr 3e-4. The f32 check cuts it to 2
+# layers (one dense block, one MoE block)
+MOE = {"batch": 16, "seq": 1024, "steps": 5, "lr": 3e-4, "f32_layers": 2,
+       "f32_batch": 2, "f32_seq": 256}
+# H100 SXM published f32 rate outside the tensor cores (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12
+
+
+def phase_moe_train():
+    """MoELMConfig() at full width and depth, bf16 over f32 weights, batch
+    16 x 1024: 5 AdamW steps on one batch with launch counts zeroed just
+    before the steps and read just after (12 of each kernel per step); the
+    reference's one-hot dispatch for 2 steps on the same weights and batch
+    (the yardstick); then the f32 check, 2 layers at full width, kernel
+    path against plain path on one step's loss and gradients."""
+    import gc
+
+    from ray_tpu_torch.models import gpt2, moe_lm
+    from ray_tpu_torch.tools import moe_runs
+
+    cfg = moe_lm.MoELMConfig()
+    batch = gpt2.synthetic_batch(60, MOE["batch"], MOE["seq"],
+                                 cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = moe_runs.train(cfg, batch, MOE["steps"], "cuda", MOE["lr"],
+                         counts=(_zero_launches, _read_launches))
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with moe_runs.one_hot_dispatch():
+        yard = moe_runs.train(cfg, batch, 2, "cuda", MOE["lr"])
+    yard_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f32 = moe_lm.MoELMConfig(n_layer=MOE["f32_layers"], dtype=torch.float32)
+    f32_batch = gpt2.synthetic_batch(61, MOE["f32_batch"], MOE["f32_seq"],
+                                     cfg.vocab_size)
+    f32_fields, f32_problems = _f32_kernel_vs_plain(
+        lambda: moe_runs.step_grads(f32, f32_batch, "cuda"), f32.n_layer)
+    del batch, f32_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fields = _train_fields(run, MOE["batch"])
+    median = fields.pop("step_ms_median_after_first")
+    fields.pop("images_per_s")
+    yard_rel = abs(yard["losses"][0] - run["losses"][0]) / abs(
+        run["losses"][0])
+    emit("moe_train", config="MoELMConfig() bf16/f32-params, MoE FFN f32",
+         layers=cfg.n_layer, moe_blocks=sum(map(cfg.is_moe,
+                                                range(cfg.n_layer))),
+         experts=cfg.num_experts, capacity_factor=cfg.capacity_factor,
+         params=run["params"], batch=MOE["batch"], seq=MOE["seq"],
+         steps=MOE["steps"], lr=MOE["lr"], **fields, lm=run["lm"],
+         aux=run["aux"], step_ms_median_after_first=median,
+         tokens_per_s=MOE["batch"] * MOE["seq"] / median * 1e3,
+         launches=run["launches"], peak_memory_bytes=peak,
+         drop_shares=run["drop_shares"],
+         one_hot_yardstick={"losses": yard["losses"],
+                            "step_ms": yard["step_ms"],
+                            "loss_rel_to_index": yard_rel,
+                            "drop_shares_start": yard["drop_shares"]["start"],
+                            "peak_memory_bytes": yard_peak},
+         f32_check={"layers": f32.n_layer, "batch": MOE["f32_batch"],
+                    "seq": MOE["f32_seq"], **f32_fields},
+         tolerance={"one_hot_loss_rel": 1e-6, "f32_loss": "1e-5 relative",
+                    "f32_grads": "1e-4 relative norm per parameter",
+                    "aux": "finite and > 0.1 at every step"})
+    problems = _loss_problems(run["losses"])
+    want = cfg.n_layer * MOE["steps"]
+    if run["launches"] != dict.fromkeys(KERNELS, want):
+        problems.append(f"launches {run['launches']}, want {want} each")
+    if not all(math.isfinite(a) and a > 0.1 for a in run["aux"]):
+        problems.append(f"aux {run['aux']}")
+    if not yard_rel <= 1e-6:
+        problems.append(f"one-hot loss {yard['losses'][0]} vs index "
+                        f"{run['losses'][0]}")
+    if yard["drop_shares"]["start"] != run["drop_shares"]["start"]:
+        problems.append("the one-hot dispatch drops other tokens")
+    problems += [f"f32 {p}" for p in f32_problems]
+    if problems:
+        raise AssertionError("moe_train: " + "; ".join(problems))
+    return run["launches"], median
+
+
+# the host ops whose kernels are the MoE dispatch and combine (index_copy,
+# index_select and index_add_ in the backward; the embedding lookup is an
+# index_select too), and the expert products (the model's only bmm)
+INDEX_OPS = ("aten::index_copy", "aten::index_select", "aten::index_add_")
+EXPERT_OPS = ("aten::bmm",)
+
+
+def phase_moe_trace(step_ms):
+    """One bf16 step of phase 17's model and batch, last, under the
+    profiler: the card's time by class of kernel (each flash kernel, matrix
+    products, the rest) and by the host op that launched it (the expert
+    products, the MoE dispatch and combine), the flash kernels' device ms
+    per launch at the path's shape, and the device's idle share against
+    phase 17's host-clock step (``step_ms``)."""
+    import gc
+
+    from ray_tpu_torch.models import gpt2, moe_lm
+    from ray_tpu_torch.ops import moe
+    from ray_tpu_torch.tools import moe_runs, timing
+
+    cfg = moe_lm.MoELMConfig()
+    batch = gpt2.synthetic_batch(60, MOE["batch"], MOE["seq"],
+                                 cfg.vocab_size)
+    model, optimizer, step = moe_runs.state(cfg, "cuda", MOE["lr"])
+    _zero_launches()
+    kernels, per_call = timing.kernel_ms(
+        lambda: step(model, optimizer, batch), 1)
+    launches = _read_launches()   # two steps: one outside the profiler
+    by_op = timing.kernel_ms_by_op(lambda: step(model, optimizer, batch), 1)
+    del model, optimizer, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    device = sum(kernels.values())
+    classes = {**{name: (name,) for name in KERNELS},
+               "matmul": MATMUL_KERNELS}
+    split = dict.fromkeys(classes, 0.0)
+    for k, ms in kernels.items():
+        for name, keys in classes.items():
+            if any(key in k.lower() for key in keys):
+                split[name] += ms
+                break
+    per_launch = {name: split[name] / cfg.n_layer for name in KERNELS}
+    ops = {"expert_products": sum(by_op.get(op, 0.0) for op in EXPERT_OPS),
+           "moe_dispatch_combine": sum(by_op.get(op, 0.0)
+                                       for op in INDEX_OPS)}
+    # the expert products' least time: E*C rows of each MoE block through
+    # two products forward and four backward, 2 * rows * D * 4D FLOP each,
+    # at the f32 rate (they run in f32)
+    D, E = cfg.n_embd, cfg.num_experts
+    rows = E * moe.expert_capacity(MOE["batch"] * MOE["seq"], E,
+                                   cfg.capacity_factor)
+    blocks = sum(map(cfg.is_moe, range(cfg.n_layer)))
+    expert_bound_ms = (blocks * 6 * 2 * rows * D * 4 * D / F32_FLOPS_PER_S
+                       * 1e3)
+    emit("moe_trace", config="MoELMConfig()", batch=MOE["batch"],
+         seq=MOE["seq"], host_step_ms=step_ms, device_ms=device,
+         idle_share=1 - device / step_ms, kernels_per_step=per_call,
+         device_ms_by_class={**split, "other": device - sum(split.values())},
+         device_ms_by_op=ops, expert_products_bound_ms=expert_bound_ms,
+         ops={"expert_products": EXPERT_OPS,
+                                   "moe_dispatch_combine": INDEX_OPS},
+         top_ops=[[op, ms] for op, ms in list(by_op.items())[:14]],
+         flash_device_ms_per_launch=per_launch,
+         flash_shape={"bh": MOE["batch"] * cfg.n_head, "s": MOE["seq"],
+                      "d": cfg.n_embd // cfg.n_head, "causal": True,
+                      "dtype": "bfloat16"},
+         launches_two_steps=launches,
+         top_kernels=[[k[:90], ms] for k, ms in list(kernels.items())[:14]],
+         note="the profiler's kernel durations of one step against phase "
+              "17's median host-clock step")
+    if launches != dict.fromkeys(KERNELS, 2 * cfg.n_layer):
+        raise AssertionError(f"moe_trace: launches {launches}")
+
+
 def _bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the bf16 tensor-core peak."""
@@ -1354,8 +1559,13 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
             bwd["library_device_ms"] -= fwd["library_device_ms"]
         flash_ms = timing.device_ms(lambda: attn.flash_attention_fwd(
             q, k, v, causal=causal))
+        dq_ms = timing.device_ms(lambda: attn._flash_bwd_dq_kernel(
+            q, k, v, do, lse, delta, **kw))
+        dkv_ms = timing.device_ms(lambda: attn._flash_bwd_dkv_kernel(
+            q, k, v, do, lse, delta, **kw))
         return {"flash_fwd": {"device_ms": flash_ms, **fwd},
-                "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
+                "flash_bwd_dq": {"device_ms": dq_ms, **bwd},
+                "flash_bwd_dkv": {"device_ms": dkv_ms, **bwd}}
 
     live = _live_pairs(bh, s, s, causal)
     stats = bh * s * 4   # one f32 per row: lse or delta
@@ -1404,12 +1614,13 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
 
 
 def phase_kernels(serve_launches, train_launches, step_ms, llama_serve,
-                  llama_train, vit_train):
+                  llama_train, vit_train, moe_train):
     """Every kernel at the shapes of every path: GPT-2's serving and
     training shapes, Llama-2-7B's prefill and decode shapes (the whole
     cache of 544 rows with the live length the path gives: 512 in the
-    prefill, 543 in the last decode step) and its training shape, and
-    ViT-B/16's training shape (non-causal, S 197)."""
+    prefill, 543 in the last decode step) and its training shape,
+    ViT-B/16's training shape (non-causal, S 197) and the MoE LM's (GPT-2's
+    training shape, with the MoE path's launches and step)."""
     cache = LLAMA_SERVE["prompt"] + LLAMA_SERVE["new_tokens"]
     entries, profiles, shares = [], [], []
     for launches, path, bh, sq, sk, d, seed, k_len in (
@@ -1430,7 +1641,9 @@ def phase_kernels(serve_launches, train_launches, step_ms, llama_serve,
              LLAMA_TRAIN["batch"], 32, LLAMA_TRAIN["seq"], 128,
              LLAMA_TRAIN["layers"], 8, True),
             (vit_train[0], vit_train[1], "vit_train", VIT["batch"], 12, 197,
-             64, 12, 9, False)):
+             64, 12, 9, False),
+            (moe_train[0], moe_train[1], "moe_train", MOE["batch"], 12,
+             MOE["seq"], 64, 12, 10, True)):
         group, share, profile = _train_shape_entries(
             launches, ms, path, b, h, s, d, n_layer, seed, causal)
         entries += group
@@ -1483,9 +1696,11 @@ def main() -> int:
     llama_train = timed("llama_train", phase_llama_train)
     vit_train = timed("vit_train", phase_vit)
     timed("resnet_train", phase_resnet)
+    moe_train = timed("moe_train", phase_moe_train)
     timed("kernels", phase_kernels, serve_launches, train_launches, step_ms,
-          llama_serve, llama_train, vit_train)
+          llama_serve, llama_train, vit_train, moe_train)
     timed("llama_trace", phase_llama_trace, llama_serve)
+    timed("moe_trace", phase_moe_trace, moe_train[1])
     emit("seconds", **seconds)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """ray_tpu_torch.models — model families ported to PyTorch."""
 
-from ray_tpu_torch.models import gpt2, llama, vision
+from ray_tpu_torch.models import gpt2, llama, moe_lm, vision
 from ray_tpu_torch.models.convert import (
     llama_opt_state_from_jax,
     llama_params_from_jax,
+    moe_lm_opt_state_from_jax,
+    moe_lm_params_from_jax,
     opt_state_from_jax,
     params_from_jax,
     vision_opt_state_from_jax,
@@ -27,6 +29,9 @@ __all__ = [
     "loss_fn",
     "make_optimizer",
     "make_train_state",
+    "moe_lm",
+    "moe_lm_opt_state_from_jax",
+    "moe_lm_params_from_jax",
     "opt_state_from_jax",
     "params_from_jax",
     "vision",

@@ -1,16 +1,18 @@
-"""Weight bridge: the Flax GPT-2, Llama, ViT and ResNet parameter trees to
-the torch ``state_dict``s, and optax's AdamW state to torch's.
+"""Weight bridge: the Flax GPT-2, Llama, ViT, ResNet and Switch-MoE LM
+parameter trees to the torch ``state_dict``s, and optax's AdamW state to
+torch's.
 
 The trees hold numpy arrays (``jax.tree.map(np.asarray, tree)`` on the JAX
 side), so this module needs neither JAX nor the JAX package. Dense
 ``kernel`` is (in, out) and becomes a Linear ``weight`` (out, in); Conv
 ``kernel`` is HWIO and becomes a Conv2d ``weight`` OIHW; LayerNorm and
 GroupNorm ``scale`` become ``weight``; Embed ``embedding`` becomes
-``weight``.
+``weight``. The MoE router and stacked expert weights keep their layout.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -35,23 +37,36 @@ def _get(tree: Mapping[str, Any], path: str):
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict for ``ray_tpu_torch.models.gpt2.GPT2`` from a Flax tree of
     numpy arrays; raises KeyError on a missing leaf."""
+    return _gpt2_blocks(tree, lambda i: False)
+
+
+def moe_lm_params_from_jax(tree: Mapping[str, Any], moe_every: int
+                           ) -> Dict[str, torch.Tensor]:
+    """State dict for ``ray_tpu_torch.models.moe_lm.MoELM`` from a Flax tree
+    of numpy arrays: block ``h_i`` is an MoE block when ``(i + 1) %
+    moe_every == 0`` (its ``router`` (D, E), ``wi`` (E, D, 4D) and ``wo``
+    (E, 4D, D) cross as they are), else GPT-2's; raises KeyError on a
+    missing leaf."""
+    return _gpt2_blocks(tree, lambda i: (i + 1) % moe_every == 0)
+
+
+def _gpt2_blocks(tree, is_moe) -> Dict[str, torch.Tensor]:
     n_layer = sum(1 for k in tree if k.startswith("h_"))
     sd: Dict[str, torch.Tensor] = {
         "wte.weight": _t(tree["wte"]["embedding"]),
         "wpe.weight": _t(tree["wpe"]["embedding"]),
-        "ln_f.weight": _t(tree["ln_f"]["scale"]),
-        "ln_f.bias": _t(tree["ln_f"]["bias"]),
     }
+    _norm(sd, "ln_f", tree["ln_f"])
     for i in range(n_layer):
-        blk = tree[f"h_{i}"]
+        blk, name = tree[f"h_{i}"], f"h.{i}"
         for ln in ("ln_1", "ln_2"):
-            sd[f"h.{i}.{ln}.weight"] = _t(blk[ln]["scale"])
-            sd[f"h.{i}.{ln}.bias"] = _t(blk[ln]["bias"])
-        for path in _DENSE:
-            dense = _get(blk, path)
-            name = f"h.{i}." + path.replace("/", ".")
-            sd[f"{name}.weight"] = _t(dense["kernel"]).T.contiguous()
-            sd[f"{name}.bias"] = _t(dense["bias"])
+            _norm(sd, f"{name}.{ln}", blk[ln])
+        moe = is_moe(i)
+        for path in _DENSE[:2] if moe else _DENSE:
+            _dense(sd, f"{name}." + path.replace("/", "."), _get(blk, path))
+        if moe:
+            for leaf in ("router", "wi", "wo"):
+                sd[f"{name}.{leaf}"] = _t(blk[leaf])
     return sd
 
 
@@ -153,6 +168,15 @@ def vision_opt_state_from_jax(opt_state_tree, model: torch.nn.Module,
     """``opt_state_from_jax`` for a ViT or ResNet: the moments laid out as
     ``vision_params_from_jax`` lays out the parameters."""
     _load_adam(opt_state_tree, model, optimizer, vision_params_from_jax)
+
+
+def moe_lm_opt_state_from_jax(opt_state_tree, model: torch.nn.Module,
+                              optimizer: torch.optim.Optimizer) -> None:
+    """``opt_state_from_jax`` for an MoE LM: the moments laid out as
+    ``moe_lm_params_from_jax`` lays out the parameters, with the model's
+    ``config.moe_every``."""
+    _load_adam(opt_state_tree, model, optimizer, functools.partial(
+        moe_lm_params_from_jax, moe_every=model.config.moe_every))
 
 
 def _load_adam(opt_state_tree, model, optimizer, convert) -> None:

@@ -327,21 +327,26 @@ def build_train_step(model: GPT2, optimizer: torch.optim.Optimizer,
     detached f32 device scalar (``float(loss)`` waits for the device).
 
     ``mesh``/``ingraph_psum`` (data parallelism with an explicit gradient
-    collective) raise NotImplementedError: data parallel over NCCL is
-    ROADMAP queue 1, item 3."""
+    collective) raise NotImplementedError: data parallel over NCCL waits
+    for ROADMAP queue 1's "The Train backend, data parallel and FSDP over
+    NCCL"."""
     if mesh is not None or ingraph_psum is not None:
         raise NotImplementedError(
             "build_train_step(mesh=..., ingraph_psum=...): data parallel over "
-            "NCCL is not ported yet (ROADMAP queue 1, item 3)")
+            "NCCL is not ported yet (ROADMAP queue 1, \"The Train backend, "
+            "data parallel and FSDP over NCCL\")")
     return in_place_step(model, optimizer, loss_fn, donate)
 
 
 def in_place_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                  loss, donate: bool = True):
+                  loss, donate: bool = True, has_aux: bool = False):
     """``step(model, optimizer, batch) -> (model, optimizer, loss)``: one
     optimizer step on the gradients of ``loss(model, batch)``, updating
     ``model`` and ``optimizer`` in place; raises if handed another model
-    or optimizer, and on ``donate=False``."""
+    or optimizer, and on ``donate=False``. With ``has_aux`` (as
+    ``jax.value_and_grad``'s), ``loss`` returns (value, aux), a tuple of
+    tensors, and the step returns (model, optimizer, value, *aux), each
+    detached."""
     if not donate:
         raise ValueError("build_train_step(donate=False) is not offered: "
                          "the step updates the model in place")
@@ -351,10 +356,12 @@ def in_place_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             raise ValueError("this step was built for another model and "
                              "optimizer")
         optimizer.zero_grad(set_to_none=True)
-        value = loss(model, batch)
+        value, aux = loss(model, batch) if has_aux else (loss(model, batch),
+                                                         ())
         value.backward()
         optimizer.step()
-        return model, optimizer, value.detach()
+        return (model, optimizer, value.detach(),
+                *(a.detach() for a in aux))
 
     return step
 

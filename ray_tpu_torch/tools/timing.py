@@ -48,8 +48,11 @@ def _profiled(fn: Callable[[], object], iters: int):
             fn()
         torch.cuda.synchronize()
     events = prof.events()
+    # a user annotation (``Optimizer.step#AdamW.step``) also shows as a
+    # range on the card's timeline, over kernels that are listed already
     return events, [e for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)]
 
 
 def profile_calls(fn: Callable[[], object], iters: int = 1
@@ -78,6 +81,24 @@ def kernel_ms(fn: Callable[[], object], iters: int = 1
     ranked = sorted(total.items(), key=lambda kv: -kv[1])
     return ({name: us / iters / 1e3 for name, us in ranked},
             len(cuda) / iters)
+
+
+def kernel_ms_by_op(fn: Callable[[], object], iters: int = 1
+                    ) -> Dict[str, float]:
+    """{host op that launched them: ms per call the card spends in its
+    kernels}, largest first, over ``iters`` calls of ``fn`` under
+    ``torch.profiler`` (each kernel counts for the innermost op around its
+    launch: ``aten::bmm``, ``aten::index_copy``, ...)."""
+    events, _ = _profiled(fn, iters)
+    total: Dict[str, float] = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        us = sum(k.duration for k in e.kernels)
+        if us:
+            total[e.name] = total.get(e.name, 0.0) + us
+    ranked = sorted(total.items(), key=lambda kv: -kv[1])
+    return {name: us / iters / 1e3 for name, us in ranked}
 
 
 def device_ms(fn: Callable[[], object], iters: int = 20) -> Optional[float]:
