@@ -171,6 +171,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    dispatch and combine's index ops),
    the flash kernels' device ms per launch at B*H 192, S 1024, D 64 causal,
    and the idle share against phase 17's median host-clock step.
+19. serve_run: the serving path through the port's runtime, last, so the
+   replica's memory cannot disturb the other phases.
+   ``ray_tpu_torch.init(num_cpus=4, num_gpus=1)`` starts the port's GCS and
+   raylet (the raylet's ``nvidia-smi -L`` probe on), and the cluster must
+   advertise GPU 1.0 with ``gpu-device-kind`` equal to ``nvidia-smi``'s
+   name. ``serve.run`` deploys ``LLMServer`` (a subclass that adds one
+   method, ``probe``, to read the replica's own launch counts) with phase
+   6's arguments and weights and ``ray_actor_options={"num_gpus": 1}``: a
+   replica actor in a worker process builds GPT-2-124M on the card. Phase
+   6's prompts go over HTTP to ``serve.http_port()``, the four at once and
+   then the 32-token one again, 16 tokens each, after one first request
+   of another prompt (a cold replica's first forward, timed apart); the
+   replica's counts are zeroed just before phase 6's prompts and read just
+   after. Checks: 16 tokens per stream,
+   equal to phase 6's streams; the repeat hits the prefix cache; the
+   replica runs in another process than this one, on the card; flash_fwd
+   launches = 12 x its forwards (one per layer) and no backward launch;
+   its KV pool is arena-backed; after ``serve.shutdown()`` and
+   ``ray_tpu_torch.shutdown()`` no process of this session is left (by its
+   session dir, so another cluster on the host is not counted) and
+   ``nvidia-smi`` lists no card memory of the replica's pid. Prints TTFT per request over HTTP,
+   tokens/s, the first request's TTFT, the replica's start seconds
+   (``serve.run`` until ready) and its ``__init__``'s part, and its launch
+   counts.
 
 Every phase raises on a failed check; no failure is caught.
 
@@ -616,7 +640,7 @@ def phase_serve_bf16():
         problems.append(f"last-position logits differ by {logit_err}")
     if problems:
         raise AssertionError("; ".join(problems))
-    return launches
+    return launches, streams
 
 
 def _loss_problems(losses):
@@ -1368,6 +1392,233 @@ def phase_moe_trace(step_ms):
         raise AssertionError(f"moe_trace: launches {launches}")
 
 
+def _probed_llm_server():
+    """``LLMServer`` plus ``probe``: the replica's own launch counts (launch
+    counters are per process, so the driver's read none of the replica's),
+    its forwards, pid, device and the seconds its ``__init__`` took (the
+    model's build on the card); ``reset=True`` zeroes the counts and the
+    forwards first. Built in a function, so the class travels to the
+    replica by value."""
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    class ProbedLLMServer(LLMServer):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            self.init_s = time.perf_counter() - t0
+
+        def probe(self, reset=False):
+            import os as _os
+
+            import torch as _torch
+
+            from ray_tpu_torch.ops import attention as attn
+
+            names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+            if reset:
+                for name in names:
+                    setattr(attn, f"{name}_launches", 0)
+                self.model.forwards = 0
+            dev = self.model.device
+            return {"launches": {n: getattr(attn, f"{n}_launches")
+                                 for n in names},
+                    "forwards": self.model.forwards, "pid": _os.getpid(),
+                    "init_s": self.init_s,
+                    "device": str(dev),
+                    "device_name": _torch.cuda.get_device_name(dev)
+                    if dev.type == "cuda" else None}
+
+    return ProbedLLMServer
+
+
+def _http_stream(port, tokens, max_tokens):
+    """POST one request to the port's proxy; (tokens, t_sent, [t_token])
+    with one host-clock stamp per streamed token line."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/llm", method="POST",
+        data=json.dumps({"tokens": tokens,
+                         "max_tokens": max_tokens}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    toks, stamps = [], []
+    with urllib.request.urlopen(req, timeout=120) as r:
+        if r.status != 200:
+            raise AssertionError(f"HTTP {r.status} from the proxy")
+        for line in r:
+            if line.strip():
+                toks.append(json.loads(line)["token"])
+                stamps.append(time.perf_counter())
+    return toks, t0, stamps
+
+
+def _session_processes(session_dir):
+    """Pids of the processes of one port session: the GCS, raylet and node
+    agent name its session dir in their argv, its workers carry it in
+    ``RAY_TPU_TORCH_SESSION_DIR``. Another session's processes on the same
+    host are not this phase's."""
+    import os
+
+    mark, env_mark = session_dir.encode(), \
+        b"RAY_TPU_TORCH_SESSION_DIR=" + session_dir.encode()
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read()
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue
+        if mark in argv or env_mark in env:
+            found.append(int(pid))
+    return found
+
+
+def _card_memory_of(pid):
+    """MiB of card memory ``nvidia-smi`` lists for ``pid``; None where it
+    lists no compute process of that pid."""
+    for line in _run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                      "--format=csv,noheader,nounits"]).splitlines():
+        fields = [f.strip() for f in line.split(",")]
+        if len(fields) == 2 and fields[0] == str(pid):
+            return int(fields[1])
+    return None
+
+
+def phase_serve_run(smi, bf16_streams):
+    """GPT-2-124M served by ``serve.run`` from a replica actor on the card,
+    requests over HTTP through the port's proxy: phase 6's prompts and
+    weights, so its streams (``bf16_streams``) are the expected tokens."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.worker import global_worker
+
+    os.environ["RAY_TPU_TORCH_gpu_autodetect"] = "1"  # the raylet's probe
+    t_init = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    os.environ.pop("RAY_TPU_TORCH_gpu_autodetect")
+    init_s = time.perf_counter() - t_init
+    session_dir = global_worker.node.session_dir
+    resources = rt.cluster_resources()
+    labels = rt.nodes()[0].get("labels") or {}
+    card = smi.split(",")[0].strip()
+    problems = []
+    if resources.get("GPU") != 1.0:
+        problems.append(f"cluster advertises GPU {resources.get('GPU')}")
+    if labels.get("gpu-device-kind") != card:
+        problems.append(f"gpu-device-kind {labels.get('gpu-device-kind')!r} "
+                        f"is not nvidia-smi's {card!r}")
+    rng = np.random.default_rng(2)  # phase 6's prompts
+    prompts = [rng.integers(0, 50257, size=n).tolist()
+               for n in (32, 129, 300, 512)]
+    try:
+        app = serve.deployment(_probed_llm_server(), name="llm").options(
+            ray_actor_options={"num_gpus": 1}).bind(
+                real_model=True, kv_dim=768, page_tokens=16, max_pages=512,
+                max_running=8, prefix_cache_pages=128,
+                model_kwargs=dict(attention="flash", dtype=torch.bfloat16,
+                                  **GPT2_124M))
+        t_run = time.perf_counter()
+        handle = serve.run(app, route_prefix="/llm")
+        start_s = time.perf_counter() - t_run
+        port = serve.http_port()
+        # one request first: a fresh replica's first forward and the
+        # proxy's first route cost what the later ones do not; its prompt
+        # shares no page with phase 6's
+        first = _http_stream(
+            port, np.random.default_rng(19).integers(0, 50257, 64).tolist(),
+            2)
+        probe = handle.options(method_name="probe")
+        probe.remote(reset=True).result(timeout_s=60)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            results = list(pool.map(
+                lambda p: _http_stream(port, p, 16), prompts))
+        results.append(_http_stream(port, prompts[0], 16))
+        wall = time.perf_counter() - t0
+        replica = probe.remote().result(timeout_s=60)
+        replica_mib = _card_memory_of(replica["pid"])
+        driver_mib = _card_memory_of(os.getpid())
+        info = handle.options(method_name="debug_info").remote().result(
+            timeout_s=60)
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    deadline = time.time() + 30
+    while time.time() < deadline and (
+            _session_processes(session_dir)
+            or _card_memory_of(replica["pid"]) is not None):
+        time.sleep(0.5)
+    left = _session_processes(session_dir)
+    replica_mib_after = _card_memory_of(replica["pid"])
+
+    streams = [r[0] for r in results]
+    ttft = [r[2][0] - r[1] for r in results]
+    total_tokens = sum(len(s) for s in streams)
+    launches, forwards = replica["launches"], replica["forwards"]
+    emit("serve_run", http_port=port, init_s=init_s, replica_start_s=start_s,
+         replica_model_init_s=replica["init_s"],
+         first_request_ttft_s=first[2][0] - first[1],
+         gpu=resources.get("GPU"), gpu_device_kind=labels.get(
+             "gpu-device-kind"), replica_pid=replica["pid"],
+         driver_pid=os.getpid(), replica_device=replica["device"],
+         replica_device_name=replica["device_name"],
+         prompt_lens=[len(p) for p in prompts] + [32], tokens=streams,
+         ttft_s=ttft, total_tokens=total_tokens, wall_s=wall,
+         tokens_per_s=total_tokens / wall, forwards=forwards,
+         launches=launches, hit_rate=info["hit_rate"],
+         arena_backed=info["arena_backed"], counts=info["counts"],
+         replica_card_mib={"serving": replica_mib,
+                           "after": replica_mib_after},
+         driver_card_mib=driver_mib, processes_left=left,
+         note="launches and forwards are the replica's, zeroed just before "
+              "the requests and read just after (after the first request); "
+              "TTFT from sending a request to its first streamed line, "
+              "host clock")
+    if any(len(s) != 16 for s in streams):
+        problems.append("a stream did not give 16 tokens")
+    if streams != list(bf16_streams):
+        problems.append("the streams differ from phase 6's in-process ones")
+    if streams[-1] != streams[0]:
+        problems.append("the repeated prompt streamed other tokens")
+    if not info["hit_rate"] > 0:
+        problems.append("the repeated prompt missed the prefix cache")
+    if replica["pid"] == os.getpid():
+        problems.append("the replica ran in the driver's process")
+    if not replica["device"].startswith("cuda") or \
+            replica["device_name"] != torch.cuda.get_device_name(0):
+        problems.append(f"the replica's model is on {replica['device']}")
+    if forwards != 16 * len(streams):
+        problems.append(f"{forwards} forwards for {len(streams)} x 16 tokens")
+    if launches["flash_fwd"] != GPT2_124M["n_layer"] * forwards or \
+            launches["flash_fwd"] == 0:
+        problems.append(f"flash_fwd launched {launches['flash_fwd']} times "
+                        f"for {forwards} forwards of "
+                        f"{GPT2_124M['n_layer']} layers")
+    if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
+        problems.append(f"serving launched backward kernels: {launches}")
+    if info["arena_backed"] is not True:
+        problems.append("the replica's KV pool is not arena-backed")
+    if left:
+        problems.append(f"session processes left after shutdown: {left}")
+    if driver_mib is not None and not replica_mib:
+        # nvidia-smi lists this namespace's pids (it lists the driver's),
+        # so it must list the replica's while it serves
+        problems.append("nvidia-smi lists no card memory of the replica")
+    if replica_mib_after is not None:
+        problems.append(f"the replica's pid still holds {replica_mib_after} "
+                        f"MiB of the card after shutdown")
+    if problems:
+        raise AssertionError("serve_run: " + "; ".join(problems))
+
+
 def _bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the bf16 tensor-core peak."""
@@ -1683,7 +1934,7 @@ def main() -> int:
     timed("kernel_vs_plain", phase_kernel_vs_plain)
     timed("bwd_kernel_vs_plain", phase_bwd_kernel_vs_plain)
     timed("serve_f32", phase_serve_f32)
-    serve_launches = timed("serve_bf16", phase_serve_bf16)
+    serve_launches, bf16_streams = timed("serve_bf16", phase_serve_bf16)
     timed("train_f32", phase_train_f32)
     train_launches, step_ms = timed("train_bf16", phase_train_bf16)
     from ray_tpu_torch.models.llama import LlamaConfig
@@ -1701,6 +1952,7 @@ def main() -> int:
           llama_serve, llama_train, vit_train, moe_train)
     timed("llama_trace", phase_llama_trace, llama_serve)
     timed("moe_trace", phase_moe_trace, moe_train[1])
+    timed("serve_run", phase_serve_run, smi, bf16_streams)
     emit("seconds", **seconds)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,11 @@ admission.
 Differences from the reference, each pinned by a test in
 ``tests/test_torch_serve_llm.py``: the decode step passes the sequence's
 tokens to ``next_token`` (the reference omits them, so its GPT-2 adapter
-never runs the model), and ``LLMServer`` refuses a model whose ``kv_dim``
-differs from the pool's. The runtime hooks (metrics registry, request
-tracing, arena pages) belong to later slices.
+never runs the model), ``LLMServer`` refuses a model whose ``kv_dim``
+differs from the pool's, and a real model that cannot be built raises.
+The runtime hooks are the reference's: the metrics counters, the replica
+context's deployment tags, the request id from the request tracer, and
+arena-backed KV pages inside a cluster.
 """
 
 from __future__ import annotations
@@ -278,46 +280,77 @@ class SequenceScheduler:
 
 
 class LLMServer:
-    """The ingress: ``{"tokens": [...], "max_tokens": n}`` (or
-    ``{"prompt": "...", ...}`` with a whitespace tokenizer) streams one JSON
-    line per token from the async-generator ``__call__``.
+    """The deployable ingress: POST {"tokens": [...], "max_tokens": n}
+    (or {"prompt": "...", ...} with a whitespace tokenizer) streams one
+    JSON line per token. An async-generator handler, so the replica's
+    existing stream protocol carries the tokens and the proxy's
+    first_byte/last_byte reqtrace marks time TTFT per request.
 
-    Defaults are the reference's ``serve_llm_*`` flags. ``real_model=True``
+    Deploy with ``serve.deployment(LLMServer).bind(...)``; tune via init
+    kwargs (defaults come from the serve_llm_* flags). ``real_model=True``
     serves ``GPT2LLM`` built from ``model_kwargs`` on ``device`` (None: the
     CUDA card, raising when there is none); ``kv_dim`` must then equal the
     model's ``n_embd``.
     """
 
-    def __init__(self, kv_dim: int = 64, page_tokens: int = 16,
-                 max_pages: int = 512, max_running: int = 8,
-                 max_queued: int = 32, batching: str = "continuous",
-                 prefix_cache_pages: int = 128, step_delay_s: float = 0.0,
-                 prefix_digest_max: int = 256, real_model: bool = False,
+    def __init__(self, kv_dim: Optional[int] = None,
+                 page_tokens: Optional[int] = None,
+                 max_pages: Optional[int] = None,
+                 max_running: Optional[int] = None,
+                 max_queued: Optional[int] = None,
+                 batching: str = "continuous",
+                 prefix_cache_pages: Optional[int] = None,
+                 step_delay_s: float = 0.0,
+                 use_arena: bool = True,
+                 prefix_digest_max: Optional[int] = None,
+                 real_model: bool = False,
                  model_kwargs: Optional[Dict[str, Any]] = None,
                  device=None):
-        self.pool = KVPool(page_tokens=page_tokens, kv_dim=kv_dim,
-                           max_pages=max_pages)
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG as cfg
+
+        if not cfg.serve_llm_enabled:
+            raise RuntimeError(
+                "LLM serving is disabled (serve_llm_enabled=0)")
+        kv_dim = int(kv_dim or cfg.serve_llm_kv_dim)
+        self.pool = KVPool(
+            page_tokens=int(page_tokens or cfg.serve_llm_page_tokens),
+            kv_dim=kv_dim,
+            max_pages=int(max_pages or cfg.serve_llm_kv_pages),
+            use_arena=use_arena,
+        )
         self.model = load_model(kv_dim=kv_dim, step_delay_s=step_delay_s,
                                 real_model=real_model, device=device,
                                 model_kwargs=model_kwargs)
         if self.model.kv_dim != self.pool.kv_dim:
+            self.pool.close()
             raise ValueError(
                 f"model kv_dim {self.model.kv_dim} != KV pool kv_dim "
                 f"{self.pool.kv_dim}: pass kv_dim={self.model.kv_dim}")
+        if prefix_cache_pages is None:
+            prefix_cache_pages = cfg.serve_llm_prefix_cache_pages
         self.scheduler = SequenceScheduler(
-            self.model, self.pool, max_running=max_running,
-            max_queued=max_queued, batching=batching,
-            prefix_cache_pages=prefix_cache_pages)
-        self._digest_cap = int(prefix_digest_max)
+            self.model, self.pool,
+            max_running=int(max_running or cfg.serve_llm_max_running),
+            max_queued=int(max_queued or cfg.serve_llm_max_queued),
+            batching=batching,
+            prefix_cache_pages=int(prefix_cache_pages),
+        )
+        self._digest_cap = int(prefix_digest_max
+                               or cfg.serve_llm_prefix_digest_max)
+        self._setup_metrics()
 
     # -- serve integration hooks ----------------------------------------
     def __serve_queue_depth__(self) -> int:
-        """Queued SEQUENCES, not HTTP requests."""
+        """Replica queue-depth gauge override: queued SEQUENCES, not
+        HTTP requests (a streaming LLM replica has ~0 pool backlog while
+        holding a deep sequence queue — autoscaling must see the
+        latter)."""
         return self.scheduler.queue_depth()
 
     def __serve_llm_report__(self) -> dict:
-        """Sequence load for routing plus the prefix digest an affinity
-        router matches against."""
+        """Rides the controller's load-report probe (replica
+        get_metrics): sequence load for routing/autoscaling plus the
+        prefix digest the affinity router matches against."""
         out = {
             "queued_seqs": self.scheduler.queue_depth(),
             "running_seqs": len(self.scheduler.running),
@@ -328,8 +361,54 @@ class LLMServer:
                 self.scheduler.cache.chains(), self._digest_cap)
         return out
 
-    # -- introspection ---------------------------------------------------
+    def _setup_metrics(self):
+        try:
+            from ray_tpu_torch._private import metrics_core as mc
+            from ray_tpu_torch.serve._common import get_replica_context
+
+            reg = mc.registry()
+            # deployment tags: same-tag series SUM in the cluster merge,
+            # so replicas of one deployment fold into per-deployment
+            # totals while distinct deployments stay separate
+            ctx = get_replica_context()
+            dep = {"deployment": ctx["deployment"]} if ctx else {}
+            c = reg.counter(
+                "serve_llm_tokens_total",
+                "Tokens processed by the LLM engine, by phase")
+            c.labels(phase="prefill", **dep).set_fn(
+                lambda: self.scheduler.tokens_prefill)
+            c.labels(phase="decode", **dep).set_fn(
+                lambda: self.scheduler.tokens_decode)
+            g = reg.gauge("kv_cache_pages",
+                          "KV cache pages by state (arena page budget)")
+            for state in ("active", "cached", "free"):
+                g.labels(state=state, **dep).set_fn(
+                    lambda s=state: self.pool.counts()[s])
+            # ratios can't be summed: tag by replica so the merge keeps
+            # one series per replica process instead of folding them
+            replica = ctx["replica"] if ctx and ctx.get("replica") \
+                else f"pid{os.getpid()}"
+            reg.gauge("kv_cache_hit_rate",
+                      "Prefix-cache hit rate (prompt tokens reused / "
+                      "prompt tokens looked up), per replica"
+                      ).labels(replica=replica, **dep).set_fn(
+                lambda: (self.scheduler.cache.hit_rate()
+                         if self.scheduler.cache else 0.0))
+            reg.counter("serve_llm_shed_total",
+                        "Sequences shed by admission control (503s)"
+                        ).labels(**dep).set_fn(
+                lambda: self.scheduler.shed_total)
+            reg.gauge("serve_llm_batch_size",
+                      "Sequences in the running batch (iteration-level "
+                      "batch occupancy)").labels(**dep).set_fn(
+                lambda: len(self.scheduler.running))
+        except Exception:
+            logger.debug("llm metrics unavailable", exc_info=True)
+
+    # -- introspection (handle-callable debug surface: tests, bench)
     def debug_info(self) -> Dict:
+        from ray_tpu_torch._private import metrics_core as mc
+
         return {
             "pid": os.getpid(),
             "arena_backed": self.pool.arena_backed,
@@ -345,7 +424,34 @@ class LLMServer:
             "tokens_decode": self.scheduler.tokens_decode,
             "shed_total": self.scheduler.shed_total,
             "steps": self.scheduler.steps,
+            "metric_names": sorted(
+                n for n in mc.registry().snapshot()
+                if n.startswith(("kv_cache", "serve_llm"))),
         }
+
+    def debug_zero_copy(self) -> Dict:
+        """Allocate one page, write through the engine's view, read it
+        back through an independent view of the store mapping — the
+        np.shares_memory proof that pages are arena-backed, zero-copy."""
+        import numpy as np
+
+        page = self.pool.alloc()
+        if page is None:
+            return {"oid_prefix_ok": False, "shares_memory": False,
+                    "roundtrip_ok": False, "error": "pool exhausted"}
+        try:
+            page.data[0, 0] = 42.5
+            rb = self.pool.readback(page)
+            from ray_tpu_torch.serve.llm.kv_cache import KV_PAGE_OID_PREFIX
+
+            return {
+                "oid_prefix_ok": (page.oid or b"").startswith(
+                    KV_PAGE_OID_PREFIX),
+                "shares_memory": bool(np.shares_memory(page.data, rb)),
+                "roundtrip_ok": float(rb[0, 0]) == 42.5,
+            }
+        finally:
+            self.pool.decref(page)
 
     # -- request path ----------------------------------------------------
     @staticmethod
@@ -365,9 +471,14 @@ class LLMServer:
                 "max_tokens": int(body.get("max_tokens", 16))}
 
     async def __call__(self, request):
+        from ray_tpu_torch._private import reqtrace
+
         req = self.parse_request(request)
+        ctx = reqtrace.CURRENT.get(None)
+        rid = ctx[0] if ctx else ""
         self.scheduler.ensure_running()
-        seq = await self.scheduler.submit(req["tokens"], req["max_tokens"])
+        seq = await self.scheduler.submit(
+            req["tokens"], req["max_tokens"], rid=rid)
         try:
             async for tok in self.scheduler.stream(seq):
                 yield (json.dumps({"token": tok}) + "\n").encode()
@@ -375,5 +486,13 @@ class LLMServer:
             self.scheduler.cancel(seq)
 
     def close(self):
-        """Stop the scheduler and release every page."""
+        """Stop the scheduler, release every page and retire the pool's
+        arena lease."""
         self.scheduler.stop()
+        self.pool.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -10,6 +10,10 @@ assertable. Its outputs equal ``ray_tpu``'s token for token.
 re-forward per step, exactly as the reference adapter does (no KV
 threading into the model yet). With ``attention="flash"`` on a CUDA device
 every forward runs the flash-attention kernel once per layer.
+
+torch is imported by ``GPT2LLM`` alone, when it is built: the Serve
+processes that load this module without serving GPT-2 (the controller,
+the proxy, a synthetic replica) never pay torch's import.
 """
 
 from __future__ import annotations
@@ -18,9 +22,6 @@ import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
-import torch
-
-from ray_tpu_torch.device import resolve_device
 
 VOCAB = 50_257  # gpt2-sized token space
 
@@ -75,6 +76,9 @@ class GPT2LLM:
 
     def __init__(self, device=None, seed: int = 0, step_delay_s: float = 0.0,
                  **config_kwargs):
+        import torch
+
+        from ray_tpu_torch.device import resolve_device
         from ray_tpu_torch.models import gpt2
 
         self.device = resolve_device(device)
@@ -102,8 +106,10 @@ class GPT2LLM:
         if self.step_delay_s > 0:
             time.sleep(self.step_delay_s)
 
-    def logits(self, tokens: List[int]) -> torch.Tensor:
+    def logits(self, tokens: List[int]) -> "torch.Tensor":
         """(T, vocab) logits of one sequence."""
+        import torch
+
         with torch.inference_mode():
             ids = torch.tensor([tokens], dtype=torch.long, device=self.device)
             out = self.model(ids)[0]
@@ -111,7 +117,7 @@ class GPT2LLM:
         return out
 
     def forward_next(self, tokens: List[int]) -> int:
-        return int(torch.argmax(self.logits(list(tokens))[-1]))
+        return int(self.logits(list(tokens))[-1].argmax())
 
     def next_token(self, kv_views, n_tokens: int, tokens=None) -> int:
         if tokens is None:

@@ -503,14 +503,26 @@ def test_entry_points_raise_without_cuda():
     teng.LLMServer().close()  # the synthetic model needs no device
 
 
-def _imported_roots(path):
+def _imported_roots(tree):
     roots = set()
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
     return roots
+
+
+def _reference_module_strings(tree):
+    """String constants that name a module of the JAX package: ``ray_tpu``
+    itself or ``ray_tpu.<...>``, as in ``-m`` argv lists,
+    ``sys.modules.get(...)`` or ``importlib.import_module(...)``. The pieces
+    of an f-string are constants too, so ``f"ray_tpu.{name}"`` is caught."""
+    return sorted(node.value for node in ast.walk(tree)
+                  if isinstance(node, ast.Constant)
+                  and isinstance(node.value, str)
+                  and (node.value == "ray_tpu"
+                       or node.value.startswith("ray_tpu.")))
 
 
 def test_port_imports_no_jax_and_nothing_of_ray_tpu():
@@ -519,5 +531,24 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     assert len(files) > 10
     banned = {"jax", "jaxlib", "flax", "optax", "ray_tpu"}
     for f in files:
-        bad = _imported_roots(f) & banned
+        tree = ast.parse(f.read_text(), str(f))
+        bad = _imported_roots(tree) & banned
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
+        named = _reference_module_strings(tree)
+        assert not named, f"{f.relative_to(REPO)} names {named}"
+
+
+def test_string_guard_bites_on_a_module_named_in_a_string():
+    snippet = (
+        "import sys, importlib\n"
+        "argv = [sys.executable, '-m', 'ray_tpu._private.worker_main']\n"
+        "sess = sys.modules.get('ray_tpu.train.session')\n"
+        "mod = importlib.import_module(f'ray_tpu.{sys.argv[1]}')\n"
+        "pkg = 'ray_tpu'\n"
+        "ok = ['ray_tpu_torch._private.worker_main', 'ray_tpu/ops/x.py:1',\n"
+        "      'ray_tpu_spill', 'the ray_tpu package']\n")
+    tree = ast.parse(snippet)
+    assert not _imported_roots(tree) & {"ray_tpu"}
+    assert _reference_module_strings(tree) == [
+        "ray_tpu", "ray_tpu.", "ray_tpu._private.worker_main",
+        "ray_tpu.train.session"]
