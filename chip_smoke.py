@@ -195,6 +195,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    tokens/s, the first request's TTFT, the replica's start seconds
    (``serve.run`` until ready) and its ``__init__``'s part, and its launch
    counts.
+20. train_fit: GPT-2-124M trained through the port's Train runtime, in its
+   own cluster (``ray_tpu_torch.init(num_cpus=4, num_gpus=1)``, shut down
+   at the end). ``TorchTrainer(ScalingConfig(num_workers=1, use_gpu=True))``
+   with ``TorchConfig()`` (NCCL) runs phase 8's configuration, seed-0
+   weights and batch in a worker the raylet spawned: ``create_mesh``, DDP
+   by ``shard_train_state``, ``build_train_step(mesh=...)``, 5 reported
+   steps, a ``save_pytree`` checkpoint directory at steps 1 and 4
+   (``CheckpointConfig(num_to_keep=1)``). Checks: the worker's backend is
+   "nccl", its pid is not the driver's, its card is ``nvidia-smi``'s, each
+   loss is within 1e-2 of phase 8's at that step, and its launch counts are
+   exactly 12 x steps of each kernel with no call of their plain versions.
+   Then a second ``fit()`` resumes from the step-1 checkpoint (steps 2-4
+   within 1e-3 of the first run's); a third, with ``FailureConfig(
+   max_failures=1)``, SIGKILLs its worker once at step 2 and recovers at
+   generation 1 from the step-1 checkpoint (one more
+   ``train_restarts_total``, the same losses within 1e-3, the killed pid
+   no longer running); a fourth runs 2 steps with
+   ``TorchConfig(ingraph_psum="quantized")`` (the int8 DDP hook over NCCL;
+   loss within 5e-2). No process of the session is left after shutdown.
+   Prints the worker's step ms (median of steps 2-5) beside phase 8's,
+   tokens/s, ``init`` s, each gang's start s and process-group s, the first
+   step's s, each checkpoint's write s and size, ``train_recovery_seconds``
+   and the worker's peak memory.
 
 Every phase raises on a failed check; no failure is caught.
 
@@ -211,6 +234,8 @@ import contextlib
 import hashlib
 import json
 import math
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -741,7 +766,7 @@ def phase_train_bf16():
         problems.append(f"launches {launches}, want {want} each")
     if problems:
         raise AssertionError("train_bf16: " + "; ".join(problems))
-    return launches, step_ms
+    return launches, step_ms, losses
 
 
 # Llama. The f32 check cuts Llama-2-7B to 4 of its 32 layers; serving runs
@@ -1619,6 +1644,340 @@ def phase_serve_run(smi, bf16_streams):
         raise AssertionError("serve_run: " + "; ".join(problems))
 
 
+# Phase 20: GPT-2-124M trained by TorchTrainer.fit() from a worker gang
+TRAIN_FIT = {"steps": 5, "ckpt_at": (1, 4), "kill_at": 2, "quant_steps": 2}
+
+
+def _fit_loop(config):
+    """The train loop of phase 20, run in the gang's worker (sent by value):
+    phase 8's model, weights and batch, DDP over a mesh of the gang,
+    ``config["steps"]`` steps from the checkpoint if there is one, each
+    reported with the worker's launch counts, its calls of the kernels'
+    plain versions (none may happen), its device and its times; a
+    ``save_pytree`` checkpoint directory at the steps of
+    ``config["ckpt_at"]``; a SIGKILL of itself at ``config["kill_at"]``
+    when the marker file is not there yet (once per run), once the driver
+    has registered the checkpoint before it (the ``config["ack"]`` file
+    ``_recording`` writes): a report still on its way to the driver dies
+    with the worker, and with it its checkpoint."""
+    import os
+    import signal
+    import time as _time
+
+    import torch as _torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import parallel, train
+    from ray_tpu_torch._private import steptrace
+    from ray_tpu_torch.air import Checkpoint, load_pytree, save_pytree
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.tools import train_runs
+
+    t_loop = _time.time()
+    plain_calls = [0]
+    for name in ("_flash_plain", "_flash_bwd_plain"):
+        def counted(*args, _fn=getattr(attn, name), **kw):
+            plain_calls[0] += 1
+            return _fn(*args, **kw)
+        setattr(attn, name, counted)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for name in names:
+        setattr(attn, f"{name}_launches", 0)
+    _torch.cuda.reset_peak_memory_stats()
+    ctx = train.get_context()
+    mesh = parallel.create_mesh({"data": ctx.get_world_size()})
+    cfg = train_runs.bf16_config()
+    model, opt = gpt2.make_train_state(cfg, _torch.Generator().manual_seed(0))
+    model, opt = gpt2.shard_train_state(model, opt, mesh)
+    start = 0
+    ck = train.get_checkpoint()
+    if ck is not None:
+        with ck.as_directory() as d:
+            load_pytree(d, model, "model")
+            load_pytree(d, opt, "optimizer", model=model)
+            with open(os.path.join(d, "step")) as f:
+                start = int(f.read()) + 1
+    step = gpt2.build_train_step(model, opt, mesh=mesh)
+    batch = gpt2.shard_batch(gpt2.synthetic_batch(
+        1, train_runs.BATCH, train_runs.SEQ, cfg.vocab_size), mesh)
+    t_ready = _time.time()
+    dev = _torch.cuda.current_device()
+    for i in range(start, config["steps"]):
+        if i == config.get("kill_at") and \
+                not os.path.exists(config["marker"]):
+            open(config["marker"], "w").close()
+            deadline = _time.time() + 120
+            while not os.path.exists(config["ack"]):
+                if _time.time() > deadline:
+                    raise RuntimeError("the driver registered no checkpoint "
+                                       f"before step {i} in 120 s")
+                _time.sleep(0.05)
+            os.kill(os.getpid(), signal.SIGKILL)
+        t0 = _time.perf_counter()
+        with train.step_phase("compute"):
+            model, opt, loss = step(model, opt, batch)
+        loss = float(loss)
+        step_ms = (_time.perf_counter() - t0) * 1e3
+        metrics = {
+            "step": i, "loss": loss, "step_ms": step_ms, "pid": os.getpid(),
+            "backend": dist.get_backend(), "world": dist.get_world_size(),
+            "device": str(_torch.device("cuda", dev)),
+            "device_name": _torch.cuda.get_device_name(dev),
+            "launches": {n: getattr(attn, f"{n}_launches") for n in names},
+            "plain_calls": plain_calls[0],
+            "peak_memory_bytes": _torch.cuda.max_memory_allocated(),
+            "loop_start": t_loop, "ready": t_ready,
+            "kernel_builds": sum(r["kind"] == "compile"
+                                 for r in steptrace.snapshot()),
+        }
+        ckpt = None
+        if i in config["ckpt_at"]:
+            t0 = _time.perf_counter()
+            d = os.path.join(config["ckpt_root"], f"step_{i}")
+            save_pytree(model, d, "model")
+            save_pytree(opt, d, "optimizer", model=model)
+            if ctx.get_world_rank() == 0:
+                with open(os.path.join(d, "step"), "w") as f:
+                    f.write(str(i))
+            metrics["ckpt_s"] = _time.perf_counter() - t0
+            metrics["ckpt_bytes"] = sum(
+                os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+            ckpt = Checkpoint.from_directory(d)
+        train.report(metrics, checkpoint=ckpt)
+
+
+@contextlib.contextmanager
+def _timed_gang_start(times):
+    """Appends (start s, process-group s) for every gang the executor
+    starts: ``BackendExecutor.start`` (placement, the worker spawn,
+    ``setup_session``) and within it the backend's ``on_start`` (the
+    process group)."""
+    from ray_tpu_torch.train import backend as backend_mod
+    from ray_tpu_torch.train import backend_executor as be
+
+    start, on_start = be.BackendExecutor.start, backend_mod._TorchBackend.on_start
+    pg = []
+
+    def timed_on_start(self, *a, **kw):
+        t0 = time.perf_counter()
+        on_start(self, *a, **kw)
+        pg.append(time.perf_counter() - t0)
+
+    def timed_start(self, *a, **kw):
+        t0 = time.perf_counter()
+        start(self, *a, **kw)
+        total = time.perf_counter() - t0
+        times.append((total - pg[-1], pg[-1]))
+
+    be.BackendExecutor.start = timed_start
+    backend_mod._TorchBackend.on_start = timed_on_start
+    try:
+        yield
+    finally:
+        be.BackendExecutor.start = start
+        backend_mod._TorchBackend.on_start = on_start
+
+
+def phase_train_fit(smi, bf16_losses, inproc_step_ms):
+    """GPT-2-124M trained by ``TorchTrainer.fit()`` from a worker the
+    port's raylet spawned, over NCCL: phase 8's run (``bf16_losses``, its
+    in-process step ``inproc_step_ms``), then a resume from the step-1
+    checkpoint, a SIGKILLed worker recovered at generation 1, and 2 steps
+    with the int8 gradient hook."""
+    import os
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.train.backend_executor import _ft_metrics
+    from ray_tpu_torch.tools import train_runs
+
+    if __name__ != "__main__":
+        # imported by a short script: send the loop by value all the same
+        import cloudpickle
+
+        cloudpickle.register_pickle_by_value(sys.modules[__name__])
+    root = tempfile.mkdtemp(prefix="train_fit_")
+    t_init = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    init_s = time.perf_counter() - t_init
+    session_dir = global_worker.node.session_dir
+    _, restarts, recovery = _ft_metrics()
+    r0 = restarts.default.value()
+    h0 = recovery.default._series()
+    gang_times, runs = [], {}
+
+    def fit(name, steps, resume=None, max_failures=0, mode="",
+            ckpt_at=TRAIN_FIT["ckpt_at"], **extra):
+        reports = []
+        config = dict(steps=steps, ckpt_at=ckpt_at,
+                      ckpt_root=os.path.join(root, "ckpt", name),
+                      marker=os.path.join(root, f"{name}.killed"),
+                      ack=os.path.join(root, f"{name}.ckpt_registered"),
+                      **extra)
+        trainer = train.TorchTrainer(
+            _fit_loop, train_loop_config=config,
+            torch_config=train.TorchConfig(ingraph_psum=mode),
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(
+                name=name, storage_path=os.path.join(root, "results"),
+                checkpoint_config=train.CheckpointConfig(num_to_keep=1),
+                failure_config=train.FailureConfig(
+                    max_failures=max_failures)),
+            resume_from_checkpoint=resume)
+        t0 = time.perf_counter()
+        with _timed_gang_start(gang_times):
+            trainer._fit_impl = _recording(trainer._fit_impl, reports,
+                                           config["ack"])
+            result = trainer.fit()
+        if result.error is not None:
+            raise AssertionError(f"train_fit {name}: {result.error}")
+        runs[name] = {"reports": reports, "wall_s": time.perf_counter() - t0,
+                      "config": config}
+        return runs[name]
+
+    try:
+        steps = TRAIN_FIT["steps"]
+        run1 = fit("fit", steps)
+        step1 = train.Checkpoint.from_directory(
+            os.path.join(run1["config"]["ckpt_root"], "step_1"))
+        run2 = fit("resume", steps, resume=step1)
+        # each checkpoint is ~1.5 GB: keep none that no later run reads
+        shutil.rmtree(os.path.join(root, "ckpt"))
+        shutil.rmtree(os.path.join(root, "results"))
+        run3 = fit("recover", steps, max_failures=1,
+                   kill_at=TRAIN_FIT["kill_at"])
+        run4 = fit("quantized", TRAIN_FIT["quant_steps"], mode="quantized",
+                   ckpt_at=())
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    deadline = time.time() + 30
+    while time.time() < deadline and _session_processes(session_dir):
+        time.sleep(0.5)
+    left = _session_processes(session_dir)
+
+    rep1 = run1["reports"]
+    losses = [r["loss"] for r in rep1]
+    step_ms = [r["step_ms"] for r in rep1]
+    worker_ms = statistics.median(step_ms[1:])
+    vs_phase8 = max(abs(a - b) for a, b in zip(losses, bf16_losses))
+    resumed = [r["loss"] for r in run2["reports"]]
+    recovered = [r for r in run3["reports"]
+                 if r["pid"] != run3["reports"][0]["pid"]]
+    killed_pid = run3["reports"][0]["pid"]
+    quant = [r["loss"] for r in run4["reports"]]
+    quant_ms = [r["step_ms"] for r in run4["reports"]]
+    h1 = recovery.default._series()
+    recovery_s = h1["sum"] - h0["sum"]
+    ckpts = [r for run in runs.values() for r in run["reports"]
+             if "ckpt_s" in r]
+    card = smi.split(",")[0].strip()
+    emit("train_fit", config="gpt2_124m attention=flash loss_chunks=8 "
+         "bf16/f32-params AdamW, TorchTrainer(ScalingConfig(num_workers=1, "
+         "use_gpu=True)), TorchConfig() -> NCCL, DDP at world size 1",
+         batch=train_runs.BATCH, seq=train_runs.SEQ, init_s=init_s,
+         worker_start_s=[g[0] for g in gang_times],
+         process_group_s=[g[1] for g in gang_times],
+         first_step_s=step_ms[0] / 1e3, worker_step_ms=worker_ms,
+         worker_step_ms_each=step_ms, inproc_step_ms=inproc_step_ms,
+         tokens_per_s=train_runs.BATCH * train_runs.SEQ / worker_ms * 1e3,
+         losses=losses, phase8_losses=bf16_losses[:steps],
+         max_loss_diff_vs_phase8=vs_phase8, resumed_losses=resumed,
+         recovered_losses=[r["loss"] for r in recovered],
+         quantized_losses=quant, quantized_step_ms_each=quant_ms,
+         quantized_vs_run1_step2_ms=[quant_ms[-1], step_ms[len(quant_ms) - 1]],
+         train_recovery_seconds=recovery_s,
+         restarts=restarts.default.value() - r0, killed_pid=killed_pid,
+         ckpt_write_s=[r["ckpt_s"] for r in ckpts],
+         ckpt_bytes=[r["ckpt_bytes"] for r in ckpts],
+         peak_memory_bytes=max(r["peak_memory_bytes"] for r in rep1),
+         kernel_builds_in_worker=rep1[-1]["kernel_builds"],
+         launches={k: v["reports"][-1]["launches"] for k, v in runs.items()},
+         backend=rep1[0]["backend"], worker_pid=rep1[0]["pid"],
+         driver_pid=os.getpid(), worker_device=rep1[0]["device"],
+         worker_device_name=rep1[0]["device_name"],
+         fit_wall_s={k: v["wall_s"] for k, v in runs.items()},
+         processes_left=left,
+         note="step ms on the worker's host clock around one step and its "
+              "float(loss); worker_start_s from placement to setup_session "
+              "done, process_group_s the NCCL init after it; losses from "
+              "phase 8's weights and batch")
+    problems = []
+    for name, run in runs.items():
+        reps = run["reports"]
+        if any(r["backend"] != "nccl" for r in reps):
+            problems.append(f"{name}: backend {reps[0]['backend']}")
+        if any(r["pid"] == os.getpid() for r in reps):
+            problems.append(f"{name}: the loop ran in the driver's process")
+        if any(r["device_name"] != card for r in reps):
+            problems.append(f"{name}: worker device {reps[0]['device_name']}"
+                            f" is not nvidia-smi's {card!r}")
+        if any(r["plain_calls"] for r in reps):
+            problems.append(f"{name}: the plain attention ran "
+                            f"{reps[-1]['plain_calls']} times")
+        last = [r for r in reps if r["pid"] == reps[-1]["pid"]]
+        want = GPT2_124M["n_layer"] * len(last)
+        if reps[-1]["launches"] != dict.fromkeys(KERNELS, want):
+            problems.append(f"{name}: launches {reps[-1]['launches']}, "
+                            f"want {want} each")
+    if [r["step"] for r in rep1] != list(range(steps)):
+        problems.append(f"fit reported steps {[r['step'] for r in rep1]}")
+    if not (all(math.isfinite(x) for x in losses) and vs_phase8 <= 1e-2):
+        problems.append(f"losses {losses} vs phase 8's {bf16_losses[:steps]}")
+    if [r["step"] for r in run2["reports"]] != list(range(2, steps)) or \
+            max(abs(a - b) for a, b in zip(resumed, losses[2:])) > 1e-3:
+        problems.append(f"resume: {resumed} vs {losses[2:]}")
+    rec_losses = [r["loss"] for r in recovered]
+    if [r["step"] for r in recovered] != list(range(2, steps)) or \
+            max(abs(a - b) for a, b in zip(rec_losses, losses[2:])) > 1e-3:
+        problems.append(f"recover: {rec_losses} vs {losses[2:]}")
+    if restarts.default.value() != r0 + 1 or h1["count"] != h0["count"] + 1:
+        problems.append(f"restarts {restarts.default.value() - r0}")
+    if _alive(killed_pid):
+        problems.append(f"the killed worker {killed_pid} is still alive")
+    if len(quant) != TRAIN_FIT["quant_steps"] or \
+            max(abs(a - b) for a, b in zip(quant, losses)) > 5e-2:
+        problems.append(f"quantized: {quant} vs {losses[:len(quant)]}")
+    if left:
+        problems.append(f"session processes left after shutdown: {left}")
+    if problems:
+        raise AssertionError("train_fit: " + "; ".join(problems))
+
+
+def _alive(pid):
+    """Whether ``pid`` runs: a zombie (dead, its status not yet collected
+    by a parent, which in a container may be an init that never reaps)
+    does not."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            state = next(line for line in f if line.startswith("State:"))
+    except (OSError, StopIteration):
+        return False
+    return "zombie" not in state
+
+
+def _recording(fit_impl, reports, ack):
+    """``_fit_impl`` with every rank-0 report's metrics appended to
+    ``reports`` (the result callback the executor calls per report, after
+    it has registered the report's checkpoint), and the file ``ack``
+    written once a report that carried a checkpoint has been taken."""
+    def wrapped(result_callback=None):
+        def cb(metrics, checkpoint):
+            reports.append(metrics)
+            if result_callback:
+                result_callback(metrics, checkpoint)
+            if "ckpt_s" in metrics:
+                with open(ack + ".tmp", "w") as f:
+                    f.write(str(metrics["step"]))
+                os.replace(ack + ".tmp", ack)
+        return fit_impl(result_callback=cb)
+    return wrapped
+
+
 def _bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the bf16 tensor-core peak."""
@@ -1936,7 +2295,8 @@ def main() -> int:
     timed("serve_f32", phase_serve_f32)
     serve_launches, bf16_streams = timed("serve_bf16", phase_serve_bf16)
     timed("train_f32", phase_train_f32)
-    train_launches, step_ms = timed("train_bf16", phase_train_bf16)
+    train_launches, step_ms, bf16_losses = timed("train_bf16",
+                                                 phase_train_bf16)
     from ray_tpu_torch.models.llama import LlamaConfig
 
     timed("llama_f32", phase_llama_f32)
@@ -1953,6 +2313,7 @@ def main() -> int:
     timed("llama_trace", phase_llama_trace, llama_serve)
     timed("moe_trace", phase_moe_trace, moe_train[1])
     timed("serve_run", phase_serve_run, smi, bf16_streams)
+    timed("train_fit", phase_train_fit, smi, bf16_losses, step_ms)
     emit("seconds", **seconds)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

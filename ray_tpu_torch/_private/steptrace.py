@@ -13,10 +13,12 @@ process keeps ONE fixed-size ring of small tuples recording
   "optimizer")``) and **step boundaries** (auto-delimited at
   ``session.report()``);
 - **compile events** (first-call / recompile timing per wrapped fn,
-  via ``trace_jit`` cache-size sampling) so compile storms are
-  attributable in the same timeline. The reference's ``jax.monitoring``
-  duration listener (``install_compile_listener``) has no counterpart in
-  eager PyTorch and is left out of the port.
+  via ``trace_jit`` cache-size sampling, and, once
+  ``install_compile_listener`` ran, every nvcc build of a hand-written
+  kernel in this process: ``ops/_build.py`` reports each one through
+  ``record_kernel_build``) so compile storms are attributable in the same
+  timeline. Eager PyTorch compiles nothing else at a first call; the
+  kernels' builds are the port's first-call compiles.
 
 Metrics-core discipline applies (see metrics_core.py): ``record_*`` is
 one module-global flag load + a tuple pack + a list store — no locks
@@ -53,6 +55,7 @@ __all__ = [
     "record_phase", "record_compile", "step_mark", "phase",
     "set_train_context", "clear_train_context", "reset", "snapshot",
     "process_snapshot", "trace_jit", "install_compile_listener",
+    "record_kernel_build",
     "merge_collectives", "merge_processes", "chrome_trace",
     "SkewAggregator", "SEQ_MOD",
 ]
@@ -354,6 +357,26 @@ def trace_jit(fn, name: Optional[str] = None):
 # ---------------------------------------------------------------------------
 # snapshot (the steptrace_snapshot RPC payload)
 # ---------------------------------------------------------------------------
+
+_compile_listener_installed = False
+
+
+def install_compile_listener():
+    """From now on, record every kernel build of this process as a compile
+    event (the port's counterpart of the reference's ``jax.monitoring``
+    listener: there, a backend compile; here, an nvcc build by
+    ``ops/_build.py``, which calls ``record_kernel_build``). Idempotent;
+    imports nothing, so this module stays importable without torch."""
+    global _compile_listener_installed
+    _compile_listener_installed = True
+
+
+def record_kernel_build(name: str, start: float, end: float):
+    """One nvcc build of the kernel source ``name`` ran from ``start`` to
+    ``end`` (wall clock): a compile event once the listener is installed."""
+    if _compile_listener_installed:
+        record_compile(name, start, end, first=True)
+
 
 def snapshot() -> List[dict]:
     """The ring contents as dicts, oldest first. ``idx`` is the

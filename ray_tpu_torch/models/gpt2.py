@@ -13,8 +13,13 @@ forward and backward kernels on the card, their plain versions on the CPU);
 ``"auto"`` is attention written in plain tensor ops. Training:
 ``make_train_state`` + ``build_train_step`` (AdamW over every parameter,
 ``loss_fn`` with the chunked tied-head loss when ``loss_chunks > 0``, a
-checkpoint around each block when ``remat``). Data parallelism over NCCL
-and ``"ring"`` attention belong to later slices of the port.
+checkpoint around each block when ``remat``). Data parallelism:
+``shard_train_state`` wraps the model in DDP over a mesh's data axes or
+shards it with FSDP2 (HSDP with a data axis too), ``shard_batch`` gives a
+rank its slice of the global batch, and ``build_train_step(mesh=...)``
+reduces the gradients with DDP's allreduce, FSDP2's reduce-scatter, or the
+chunked or int8 collectives of ``ray_tpu_torch.parallel`` as a DDP
+communication hook. ``"ring"`` attention belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -312,11 +317,149 @@ def make_train_state(config: GPT2Config,
     return model, make_optimizer(model, learning_rate, weight_decay)
 
 
-def build_train_step(model: GPT2, optimizer: torch.optim.Optimizer,
+class LossModel(nn.Module):
+    """``loss_fn`` of ``model`` as one module's forward: what DDP and FSDP2
+    wrap. The loss reads the tied head (``model.wte.weight``) outside the
+    model's own forward, so only a forward around the whole loss lets DDP's
+    reducer and FSDP2's unshard/reshard see every use of it."""
+
+    def __init__(self, model: GPT2):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return loss_fn(self.model, batch)
+
+
+def _is_wrapped(model: nn.Module) -> bool:
+    from torch.nn.parallel import DistributedDataParallel as DDP
+
+    return isinstance(model, (DDP, LossModel))
+
+
+def shard_train_state(model: GPT2, optimizer: torch.optim.Optimizer, mesh,
+                      fsdp: bool = False):
+    """(wrapped model, optimizer) for data parallelism over ``mesh`` (a
+    ``parallel.create_mesh`` DeviceMesh): the model's loss (``LossModel``)
+    wrapped in DDP over the group of the mesh's data-like axes (the axes
+    ``shard_batch`` splits the batch over; replicated parameters), or, with
+    ``fsdp=True`` and an ``fsdp`` axis, sharded with FSDP2 over it (HSDP
+    with a ``data`` axis too; ``parallel.shard_params_fsdp``). The
+    optimizer is the one given, re-pointed at the wrapped parameters
+    (FSDP2 replaces them with DTensors): every param group keeps its
+    parameters, in order, and all its hyperparameters and options; any
+    state moves across, sharded like its parameter. Build the step on what
+    this returns."""
+    from collections import defaultdict
+
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.nn.parallel import DistributedDataParallel as DDP
+
+    from ray_tpu_torch.parallel import mesh_utils
+
+    if _is_wrapped(model):
+        raise ValueError("shard_train_state: the model is already wrapped")
+    name_of = {p: n for n, p in model.named_parameters()}
+    held = [p for g in optimizer.param_groups for p in g["params"]]
+    if any(p not in name_of for p in held):
+        raise ValueError("shard_train_state: the optimizer holds a tensor "
+                         "that is not a parameter of the model")
+    loss_model = LossModel(model)
+    if fsdp and "fsdp" in mesh.mesh_dim_names:
+        # the tied embedding stays with the root's unit: the head reads it
+        # after the embedding's own forward, when its unit has resharded
+        wrapped = mesh_utils.shard_params_fsdp(loss_model, mesh,
+                                               leave_to_root=(model.wte,))
+    else:
+        group = _data_group(mesh)
+        dev = next(model.parameters()).device
+        wrapped = DDP(loss_model, process_group=group,
+                      device_ids=[dev.index] if dev.type == "cuda" else None)
+    new = dict(model.named_parameters())
+    state = defaultdict(dict)
+    for group in optimizer.param_groups:
+        params = [new[name_of[p]] for p in group["params"]]
+        for old, p in zip(group["params"], params):
+            if old not in optimizer.state:
+                continue
+            state[p] = {
+                k: distribute_tensor(v, p.device_mesh, p.placements)
+                if isinstance(p, DTensor) and torch.is_tensor(v)
+                and v.shape == old.shape else v
+                for k, v in optimizer.state[old].items()}
+        group["params"] = params
+    optimizer.state = state
+    return wrapped, optimizer
+
+
+def _data_group(mesh):
+    """The process group over the mesh's data-like axes: one axis's group,
+    or the whole default group when the mesh is only data-like axes."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import mesh_utils
+
+    axes = mesh_utils.data_sharding(mesh)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    if set(mesh.mesh_dim_names) <= set(axes):
+        return dist.group.WORLD
+    raise ValueError(f"mesh axes {mesh.mesh_dim_names}: DDP over several "
+                     "data axes beside other axes is not supported")
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's block of the global ``batch``: the leading dim split
+    over the mesh's data-like axes (the reference's ``data_sharding``)."""
+    from ray_tpu_torch.parallel import mesh_utils
+
+    i, n = mesh_utils.shard_index(mesh, mesh_utils.data_sharding(mesh))
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch of {v.shape[0]} does not split over "
+                             f"{n} data shards")
+        b = v.shape[0] // n
+        out[k] = v[i * b:(i + 1) * b]
+    return out
+
+
+def _comm_hook(mode: str, chunks: int):
+    """A DDP communication hook giving the MEAN of each bucket over the
+    process group (its ``state``) through ``parallel.collectives``:
+    "chunked" splits the bucket into ``chunks`` all-reduces (the split
+    differs from the reference's per-parameter one; the sums do not);
+    "quantized" quantizes each parameter's gradient in the bucket with its
+    own scale, as the reference's per-leaf ``quantized_psum``."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import collectives
+
+    def hook(group, bucket):
+        buf = bucket.buffer()
+        if mode == "chunked":
+            reduced = collectives.chunked_psum(buf, group, chunks=chunks)
+            reduced = reduced / dist.get_world_size(group)
+        else:
+            sizes = [p.numel() for p in bucket.parameters()]
+            reduced = collectives.quantized_psum(buf, group, mean=True,
+                                                 segments=sizes)
+        buf.copy_(reduced)
+        fut = torch.futures.Future()
+        fut.set_result(buf)
+        return fut
+
+    return hook
+
+
+def build_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                      donate: bool = True, *, mesh=None,
-                     ingraph_psum: Optional[str] = None):
+                     batch_axis: str = "data",
+                     ingraph_psum: Optional[str] = None,
+                     psum_chunks: Optional[int] = None):
     """``step(model, optimizer, batch) -> (model, optimizer, loss)``: one
-    AdamW step on ``loss_fn``'s gradients, for one device.
+    AdamW step on ``loss_fn``'s gradients.
 
     The step is built for ``model`` and ``optimizer`` (as the JAX step is
     built for one model and one optimizer) and raises if handed others. It
@@ -326,16 +469,67 @@ def build_train_step(model: GPT2, optimizer: torch.optim.Optimizer,
     old state alive, is not offered. ``loss`` is the step's loss as a
     detached f32 device scalar (``float(loss)`` waits for the device).
 
-    ``mesh``/``ingraph_psum`` (data parallelism with an explicit gradient
-    collective) raise NotImplementedError: data parallel over NCCL waits
-    for ROADMAP queue 1's "The Train backend, data parallel and FSDP over
-    NCCL"."""
-    if mesh is not None or ingraph_psum is not None:
-        raise NotImplementedError(
-            "build_train_step(mesh=..., ingraph_psum=...): data parallel over "
-            "NCCL is not ported yet (ROADMAP queue 1, \"The Train backend, "
-            "data parallel and FSDP over NCCL\")")
-    return in_place_step(model, optimizer, loss_fn, donate)
+    Data parallelism: ``model`` and ``optimizer`` from
+    ``shard_train_state`` and each rank's ``shard_batch`` block; with
+    ``mesh``, ``loss`` is the global batch's mean (an all-reduce over the
+    data axes), as the reference's. With no mode, DDP's own allreduce (or
+    FSDP2's reduce-scatter) gives the mean gradient. ``ingraph_psum`` (or
+    the ``train_ingraph_psum`` flag, usually armed per run via
+    ``TorchConfig(ingraph_psum=...)``) registers a DDP communication hook
+    instead: "chunked" splits each bucket's allreduce into ``psum_chunks``
+    collectives, "quantized" rides the int8 wire (``quantized_psum``);
+    both give the MEAN over ``batch_axis``'s group. A mode needs a mesh and
+    a DDP model, and ``batch_axis`` must be the one axis the batch is split
+    over (``shard_batch`` splits it over every data-like axis of the mesh):
+    the port refuses a reduction over fewer axes than the split. As in the
+    reference, ``batch_axis`` matters only with a mode. The loss is
+    averaged over every axis the batch is split over."""
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG as _cfg
+
+    mode = _cfg.train_ingraph_psum if ingraph_psum is None else ingraph_psum
+    if mode and mesh is None:
+        raise ValueError(
+            f"ingraph_psum={mode!r} needs an explicit mesh: the collective "
+            "runs over the mesh's data group")
+    if mode not in ("", "chunked", "quantized"):
+        raise ValueError(f"unknown ingraph_psum mode: {mode!r}")
+    if not _is_wrapped(model):
+        if mesh is not None:
+            raise ValueError("build_train_step(mesh=...) takes the model "
+                             "shard_train_state returns")
+        return in_place_step(model, optimizer, loss_fn, donate)
+    from ray_tpu_torch.parallel import collectives, mesh_utils
+
+    split = mesh_utils.data_sharding(mesh) if mesh is not None else ()
+    if mode:
+        if split != (batch_axis,):
+            raise ValueError(f"batch_axis {batch_axis!r}: the batch is split "
+                             f"over the mesh's data-like axes {split}, and "
+                             "the gradients must be reduced over the same")
+        from torch.nn.parallel import DistributedDataParallel as DDP
+
+        if not isinstance(model, DDP):
+            raise ValueError(f"ingraph_psum={mode!r} runs as a DDP "
+                             "communication hook: shard_train_state(fsdp="
+                             "False)")
+        chunks = int(psum_chunks if psum_chunks is not None
+                     else _cfg.train_ingraph_psum_chunks)
+        model.register_comm_hook(mesh.get_group(batch_axis),
+                                 _comm_hook(mode, chunks))
+    step = in_place_step(model, optimizer, lambda m, batch: m(batch), donate)
+    if mesh is None:
+        return step
+
+    groups = mesh_utils.axis_groups(mesh, split)
+
+    def global_step(step_model, step_optimizer, batch):
+        step_model, step_optimizer, loss = step(step_model, step_optimizer,
+                                                batch)
+        for group in groups:
+            loss = collectives.pmean(loss, group)
+        return step_model, step_optimizer, loss
+
+    return global_step
 
 
 def in_place_step(model: nn.Module, optimizer: torch.optim.Optimizer,

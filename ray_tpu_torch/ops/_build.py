@@ -7,7 +7,9 @@ module and have no ``nvcc``. The file name carries a hash of the source, of
 every ``*.cuh`` header it can include (those beside it and those in
 ``ops/csrc/``, both on nvcc's include path) and of the flags, so an edited
 source or header rebuilds and an unchanged one loads the library already
-built. A file lock per source keeps concurrent processes from
+built. Each build that runs nvcc is a compile event in the process's
+step-telemetry ring (``steptrace.record_kernel_build``). A file lock per
+source keeps concurrent processes from
 building the same library twice while different sources build side by side;
 the finished library is moved into place atomically.
 """
@@ -23,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Tuple
+
+from ray_tpu_torch._private import steptrace
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -70,9 +74,10 @@ def build(source: Path) -> Tuple[Path, float]:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         includes = [f"-I{d}" for d in _include_dirs(source)]
         cmd = [_nvcc(), *NVCC_FLAGS, *includes, "-o", str(tmp), str(source)]
-        t0 = time.perf_counter()
+        t0, wall0 = time.perf_counter(), time.time()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
+        steptrace.record_kernel_build(source.stem, wall0, time.time())
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)

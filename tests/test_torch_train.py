@@ -224,7 +224,7 @@ def test_adamw_update_matches_optax_and_decays_every_leaf():
                                    start[name] * (1 - 3e-4 * 0.1) ** 2)
 
 
-def test_train_step_loss_falls_and_data_parallel_raises():
+def test_train_step_loss_falls_and_data_parallel_modes_are_checked():
     torch.manual_seed(0)
     model, optimizer = tgpt2.make_train_state(
         tgpt2.GPT2Config.small_test(attention="flash", loss_chunks=4),
@@ -234,10 +234,13 @@ def test_train_step_loss_falls_and_data_parallel_raises():
     _, tbatch = _batch(6)
     losses = _port_steps(model, optimizer, tbatch, 3)
     assert all(np.isfinite(losses)) and losses[2] < losses[0]
-    with pytest.raises(NotImplementedError, match="The Train backend"):
-        tgpt2.build_train_step(model, optimizer, mesh=object())
-    with pytest.raises(NotImplementedError, match="The Train backend"):
+    # the reference's checks: a gradient collective mode needs a mesh, and
+    # an unknown mode is refused
+    with pytest.raises(ValueError, match="needs an explicit mesh"):
         tgpt2.build_train_step(model, optimizer, ingraph_psum="chunked")
+    with pytest.raises(ValueError, match="unknown ingraph_psum mode"):
+        tgpt2.build_train_step(model, optimizer, mesh=object(),
+                               ingraph_psum="bogus")
     with pytest.raises(ValueError, match="in place"):
         tgpt2.build_train_step(model, optimizer, donate=False)
 
