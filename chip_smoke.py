@@ -218,10 +218,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    tokens/s, ``init`` s, each gang's start s and process-group s, the first
    step's s, each checkpoint's write s and size, ``train_recovery_seconds``
    and the worker's peak memory.
+21. tune_asha_vit: Tune over the Train runtime, in its own cluster
+   (``ray_tpu_torch.init(num_cpus=4, num_gpus=1)``, shut down at the end).
+   ``tools/tune_runs.asha_tuner`` builds
+   ``Tuner(TorchTrainer(tune_runs.vit_trial_loop, ScalingConfig(
+   num_workers=1, resources_per_worker={"CPU": 1, "GPU": 0.25})))`` over a
+   grid of 8 learning rates with ASHA (``max_t`` 8, ``grace_period`` 2,
+   ``reduction_factor`` 2) and ``max_concurrent_trials=4``: each trial
+   trains phase 13's model, weights and batch at its lr in a worker of its
+   own on the card (an NCCL group of one on ``cuda:0``), four at a time,
+   one report per step; each worker zeroes its launch counts before its
+   first step. Checks: 8 trials, no error; each trial's launches exactly 12
+   x its iterations of each kernel, no plain-version call, no kernel build
+   in the worker (phase 2 built them); finite losses; the lr 1e-4 trial's
+   first 5 losses within 1e-2 of phase 13's (the line says whether they
+   are equal to the bit); ASHA stops at least one trial before ``max_t``,
+   and a fresh ``ASHAScheduler`` replayed on the results in their order of
+   arrival decides the same; ``get_best_result()`` names the trial with
+   the lowest last loss; 4 trials ran at once (their loops' spans); no
+   process of the session is left after shutdown. Prints the Tuner's wall
+   s, per trial its lr, iterations, stop rung, worker start to loop s (the
+   spawn, torch's import, the NCCL process group), the loop's CUDA
+   context, model build and batch s, first-step s, median
+   step ms of steps 2-n under sharing beside phase 13's, peak memory and
+   kernel builds, and ASHA's record (rung, lr, loss, cutoff, decision).
 
 Every phase raises on a failed check; no failure is caught.
 
-Then one line with each phase's seconds. The last two lines are the
+The ``kernels`` line comes after phase 21: phase 15's entries, then the
+ViT-in-a-trial path's rows (phase 15's times at ViT-B/16's shape with the
+launches the trials' workers counted). Then one line with each phase's
+seconds. The last two lines are the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
@@ -1214,7 +1241,7 @@ def phase_vit():
         problems.append(f"f32 pass launches {f32_launches}")
     if problems:
         raise AssertionError("vit_train: " + "; ".join(problems))
-    return launches, fields["step_ms_median_after_first"]
+    return launches, fields["step_ms_median_after_first"], run["losses"]
 
 
 def phase_resnet():
@@ -1675,12 +1702,6 @@ def _fit_loop(config):
     from ray_tpu_torch.tools import train_runs
 
     t_loop = _time.time()
-    plain_calls = [0]
-    for name in ("_flash_plain", "_flash_bwd_plain"):
-        def counted(*args, _fn=getattr(attn, name), **kw):
-            plain_calls[0] += 1
-            return _fn(*args, **kw)
-        setattr(attn, name, counted)
     names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     for name in names:
         setattr(attn, f"{name}_launches", 0)
@@ -1703,48 +1724,52 @@ def _fit_loop(config):
         1, train_runs.BATCH, train_runs.SEQ, cfg.vocab_size), mesh)
     t_ready = _time.time()
     dev = _torch.cuda.current_device()
-    for i in range(start, config["steps"]):
-        if i == config.get("kill_at") and \
-                not os.path.exists(config["marker"]):
-            open(config["marker"], "w").close()
-            deadline = _time.time() + 120
-            while not os.path.exists(config["ack"]):
-                if _time.time() > deadline:
-                    raise RuntimeError("the driver registered no checkpoint "
-                                       f"before step {i} in 120 s")
-                _time.sleep(0.05)
-            os.kill(os.getpid(), signal.SIGKILL)
-        t0 = _time.perf_counter()
-        with train.step_phase("compute"):
-            model, opt, loss = step(model, opt, batch)
-        loss = float(loss)
-        step_ms = (_time.perf_counter() - t0) * 1e3
-        metrics = {
-            "step": i, "loss": loss, "step_ms": step_ms, "pid": os.getpid(),
-            "backend": dist.get_backend(), "world": dist.get_world_size(),
-            "device": str(_torch.device("cuda", dev)),
-            "device_name": _torch.cuda.get_device_name(dev),
-            "launches": {n: getattr(attn, f"{n}_launches") for n in names},
-            "plain_calls": plain_calls[0],
-            "peak_memory_bytes": _torch.cuda.max_memory_allocated(),
-            "loop_start": t_loop, "ready": t_ready,
-            "kernel_builds": sum(r["kind"] == "compile"
-                                 for r in steptrace.snapshot()),
-        }
-        ckpt = None
-        if i in config["ckpt_at"]:
+    with train_runs.counting_plain_calls() as plain_calls:
+        for i in range(start, config["steps"]):
+            if i == config.get("kill_at") and \
+                    not os.path.exists(config["marker"]):
+                open(config["marker"], "w").close()
+                deadline = _time.time() + 120
+                while not os.path.exists(config["ack"]):
+                    if _time.time() > deadline:
+                        raise RuntimeError(
+                            "the driver registered no checkpoint before "
+                            f"step {i} in 120 s")
+                    _time.sleep(0.05)
+                os.kill(os.getpid(), signal.SIGKILL)
             t0 = _time.perf_counter()
-            d = os.path.join(config["ckpt_root"], f"step_{i}")
-            save_pytree(model, d, "model")
-            save_pytree(opt, d, "optimizer", model=model)
-            if ctx.get_world_rank() == 0:
-                with open(os.path.join(d, "step"), "w") as f:
-                    f.write(str(i))
-            metrics["ckpt_s"] = _time.perf_counter() - t0
-            metrics["ckpt_bytes"] = sum(
-                os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
-            ckpt = Checkpoint.from_directory(d)
-        train.report(metrics, checkpoint=ckpt)
+            with train.step_phase("compute"):
+                model, opt, loss = step(model, opt, batch)
+            loss = float(loss)
+            step_ms = (_time.perf_counter() - t0) * 1e3
+            metrics = {
+                "step": i, "loss": loss, "step_ms": step_ms,
+                "pid": os.getpid(),
+                "backend": dist.get_backend(), "world": dist.get_world_size(),
+                "device": str(_torch.device("cuda", dev)),
+                "device_name": _torch.cuda.get_device_name(dev),
+                "launches": {n: getattr(attn, f"{n}_launches")
+                             for n in names},
+                "plain_calls": plain_calls[0],
+                "peak_memory_bytes": _torch.cuda.max_memory_allocated(),
+                "loop_start": t_loop, "ready": t_ready,
+                "kernel_builds": sum(r["kind"] == "compile"
+                                     for r in steptrace.snapshot()),
+            }
+            ckpt = None
+            if i in config["ckpt_at"]:
+                t0 = _time.perf_counter()
+                d = os.path.join(config["ckpt_root"], f"step_{i}")
+                save_pytree(model, d, "model")
+                save_pytree(opt, d, "optimizer", model=model)
+                if ctx.get_world_rank() == 0:
+                    with open(os.path.join(d, "step"), "w") as f:
+                        f.write(str(i))
+                metrics["ckpt_s"] = _time.perf_counter() - t0
+                metrics["ckpt_bytes"] = sum(
+                    os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+                ckpt = Checkpoint.from_directory(d)
+            train.report(metrics, checkpoint=ckpt)
 
 
 @contextlib.contextmanager
@@ -1976,6 +2001,180 @@ def _recording(fit_impl, reports, ack):
                 os.replace(ack + ".tmp", ack)
         return fit_impl(result_callback=cb)
     return wrapped
+
+
+# Phase 21: Tune's ASHA over the lr of ViT-B/16 trials, four at a time on
+# the card. The grid's order is chosen: each wave of four holds a spread of
+# rates, and the last two barely move the loss, so ASHA has trials to stop
+# at rung 2 once the first wave has recorded there. 1e-4 is phase 13's lr.
+TUNE_ASHA = {"lrs": (1e-4, 1e-3, 3e-5, 3e-4, 1e-5, 5e-4, 3e-6, 1e-7),
+             "max_t": 8, "grace_period": 2, "reduction_factor": 2,
+             "concurrent": 4, "gpu": 0.25, "phase13_lr": 1e-4,
+             "vs_phase13_steps": 5, "vs_phase13_limit": 1e-2}
+
+
+def _max_overlap(spans):
+    """The most of the (start, end) spans that hold one instant."""
+    edges = sorted([(s, 1) for s, _ in spans] + [(e, -1) for _, e in spans])
+    most = now = 0
+    for _, step in edges:
+        now += step
+        most = max(most, now)
+    return most
+
+
+def phase_tune_asha(smi, vit_losses, vit_step_ms):
+    """``Tuner(TorchTrainer(tune_runs.vit_trial_loop)).fit()``: ASHA over
+    the lr of 8 ViT-B/16 trials at full width, each a gang of one worker
+    leasing a quarter of the card, 4 at a time (phase 13's weights, batch
+    and model; ``vit_losses`` and ``vit_step_ms`` are phase 13's)."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.tools import tune_runs
+
+    cfg = TUNE_ASHA
+    asha = {k: cfg[k] for k in ("max_t", "grace_period", "reduction_factor")}
+    root = tempfile.mkdtemp(prefix="tune_asha_")
+    t_init = time.perf_counter()
+    rt.init(num_cpus=cfg["concurrent"], num_gpus=1)
+    init_s = time.perf_counter() - t_init
+    session_dir = global_worker.node.session_dir
+    try:
+        tuner, scheduler = tune_runs.asha_tuner(
+            cfg["lrs"], tune_runs.LOOP, **asha,
+            max_concurrent_trials=cfg["concurrent"],
+            resources_per_worker={"CPU": 1, "GPU": cfg["gpu"]},
+            storage_path=os.path.join(root, "results"))
+        t0 = time.perf_counter()
+        grid = tuner.fit()
+        wall_s = time.perf_counter() - t0
+        best = grid.get_best_result().metrics
+        errors = [str(e) for e in grid.errors]
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    deadline = time.time() + 30
+    while time.time() < deadline and _session_processes(session_dir):
+        time.sleep(0.5)
+    left = _session_processes(session_dir)
+
+    lr_of = {tid: c["train_loop_config"]["lr"]
+             for tid, c in scheduler.configs.items()}
+    reports = {lr_of[tid]: rows for tid, rows in scheduler.results.items()}
+    stopped = {lr_of[tid]: t
+               for tid, t in tune_runs.stopped_early(scheduler).items()}
+    replayed = tune_runs.replay(scheduler.events, scheduler.trial_ids,
+                                metric="loss", mode="min", **asha)
+    decided = [e[4] for e in scheduler.events if e[0] == "result"]
+    trials, launches = [], dict.fromkeys(KERNELS, 0)
+    for lr, rows in reports.items():
+        last = rows[-1]
+        for name in KERNELS:
+            launches[name] += last["launches"][name]
+        step_ms = [r["step_ms"] for r in rows]
+        trials.append({
+            "lr": lr, "iterations": last["training_iteration"],
+            "stop_rung": stopped.get(lr),
+            "losses": [r["loss"] for r in rows],
+            "worker_start_to_loop_s": (last["loop_start"]
+                                       - last["worker_start"]),
+            "context_s": last["context"] - last["loop_start"],
+            "model_built_s": last["built"] - last["context"],
+            "batch_ready_s": last["ready"] - last["built"],
+            "cpu_threads": last["cpu_threads"],
+            "first_step_s": step_ms[0] / 1e3,
+            "step_ms_median_after_first": (statistics.median(step_ms[1:])
+                                           if len(step_ms) > 1 else None),
+            "step_ms": step_ms,
+            "peak_memory_bytes": last["peak_memory_bytes"],
+            "launches": last["launches"], "plain_calls": last["plain_calls"],
+            "kernel_builds": last["kernel_builds"], "pid": last["pid"],
+            "device_name": last["device_name"],
+            "span": [last["loop_start"], last["reported_at"]]})
+    trials.sort(key=lambda t: t["span"][0])
+    overlap = _max_overlap([t["span"] for t in trials])
+    record = [{"rung": e[5], "lr": lr_of[e[1]], "t": e[2], "loss": e[3],
+               "cutoff": e[6], "decision": e[4]}
+              for e in scheduler.events if e[0] == "result" and e[5]]
+    ref = reports.get(cfg["phase13_lr"], [])
+    ref_losses = [r["loss"] for r in ref[:cfg["vs_phase13_steps"]]]
+    vs13 = [abs(a - b) for a, b in zip(ref_losses, vit_losses)]
+    lowest = min(trials, key=lambda t: t["losses"][-1])
+    card = smi.split(",")[0].strip()
+    emit("tune_asha_vit", config="vit_b16 bf16/f32-params AdamW, Tuner("
+         "TorchTrainer(ScalingConfig(num_workers=1, resources_per_worker="
+         f"{{'CPU': 1, 'GPU': {cfg['gpu']}}})), ASHA(max_t={cfg['max_t']}, "
+         f"grace_period={cfg['grace_period']}, reduction_factor="
+         f"{cfg['reduction_factor']}), max_concurrent_trials="
+         f"{cfg['concurrent']})", lrs=list(cfg["lrs"]), init_s=init_s,
+         tuner_wall_s=wall_s, trials=trials, max_trials_at_once=overlap,
+         phase13_step_ms=vit_step_ms, phase13_losses=vit_losses,
+         lr_1e4_losses=ref_losses, max_loss_diff_vs_phase13=max(vs13 or [0]),
+         lr_1e4_equal_to_phase13_bits=ref_losses == list(
+             vit_losses[:len(ref_losses)]),
+         asha_record=record, stopped_early=stopped,
+         replay_equal=replayed == decided,
+         best_lr=best["config"]["train_loop_config"]["lr"],
+         lowest_last_loss_lr=lowest["lr"], launches=launches,
+         errors=errors, processes_left=left,
+         note="step ms on each worker's host clock around one step and its "
+              "float(loss), 4 trials sharing the card; worker_start_to_loop "
+              "covers the worker's spawn, torch's import and the NCCL "
+              "process group")
+    n_layer = tune_runs.MODELS[tune_runs.LOOP["model"]]().n_layer
+    problems = []
+    if errors or len(trials) != len(cfg["lrs"]):
+        problems.append(f"{len(trials)} trials, errors {errors}")
+    for t in trials:
+        want = dict.fromkeys(KERNELS, n_layer * t["iterations"])
+        if t["launches"] != want:
+            problems.append(f"lr {t['lr']}: launches {t['launches']}, "
+                            f"want {want}")
+        if t["plain_calls"]:
+            problems.append(f"lr {t['lr']}: {t['plain_calls']} plain calls")
+        if t["kernel_builds"]:
+            problems.append(f"lr {t['lr']}: a kernel build in the worker: "
+                            f"{t['kernel_builds']}")
+        if t["device_name"] != card:
+            problems.append(f"lr {t['lr']}: device {t['device_name']}")
+        if not all(math.isfinite(x) for x in t["losses"]):
+            problems.append(f"lr {t['lr']}: losses {t['losses']}")
+    if len(ref_losses) != cfg["vs_phase13_steps"] or \
+            max(vs13) > cfg["vs_phase13_limit"]:
+        problems.append(f"lr {cfg['phase13_lr']}: {ref_losses} vs phase "
+                        f"13's {vit_losses}")
+    if not stopped:
+        problems.append("ASHA stopped no trial before max_t")
+    if replayed != decided:
+        problems.append(f"ASHA decided {decided}, a replay {replayed}")
+    if best["config"]["train_loop_config"]["lr"] != lowest["lr"]:
+        problems.append(f"best lr {best['config']} is not the lowest last "
+                        f"loss's {lowest['lr']}")
+    if overlap != cfg["concurrent"]:
+        problems.append(f"{overlap} trials ran at once, want "
+                        f"{cfg['concurrent']}")
+    if left:
+        problems.append(f"session processes left after shutdown: {left}")
+    if problems:
+        raise AssertionError("tune_asha_vit: " + "; ".join(problems))
+    return launches
+
+
+def _tune_entries(vit_entries, launches):
+    """The ``kernels`` line's rows of the ViT-in-a-trial path: phase 15's
+    entries at ViT-B/16's shape (the times taken in this process) with the
+    launches the trials' workers counted."""
+    rows = []
+    for entry in vit_entries:
+        row = dict(entry, path="tune_vit_trial",
+                   launches=launches[entry["name"]])
+        row["note"] = ("launches summed over the trials' workers; times are "
+                       "phase 15's at this shape in the driver's process")
+        rows.append(row)
+    return rows
 
 
 def _bound(nbytes, flops):
@@ -2271,7 +2470,7 @@ def phase_kernels(serve_launches, train_launches, step_ms, llama_serve,
         update()
     for share in shares:
         emit("attention_share", **share)
-    print(json.dumps({"kernels": entries}), flush=True)
+    return entries
 
 
 def main() -> int:
@@ -2308,12 +2507,17 @@ def main() -> int:
     vit_train = timed("vit_train", phase_vit)
     timed("resnet_train", phase_resnet)
     moe_train = timed("moe_train", phase_moe_train)
-    timed("kernels", phase_kernels, serve_launches, train_launches, step_ms,
-          llama_serve, llama_train, vit_train, moe_train)
+    kernels = timed("kernels", phase_kernels, serve_launches, train_launches,
+                    step_ms, llama_serve, llama_train, vit_train, moe_train)
     timed("llama_trace", phase_llama_trace, llama_serve)
     timed("moe_trace", phase_moe_trace, moe_train[1])
     timed("serve_run", phase_serve_run, smi, bf16_streams)
     timed("train_fit", phase_train_fit, smi, bf16_losses, step_ms)
+    tune_launches = timed("tune_asha_vit", phase_tune_asha, smi, vit_train[2],
+                          vit_train[1])
+    kernels += _tune_entries([e for e in kernels if e["path"] == "vit_train"],
+                             tune_launches)
+    print(json.dumps({"kernels": kernels}), flush=True)
     emit("seconds", **seconds)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

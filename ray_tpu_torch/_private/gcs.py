@@ -115,6 +115,9 @@ class PlacementGroupRecord:
         self.contention_score: Optional[float] = None
         self.sched_strategy: str = "resource-fit"
         self.repack_moves: int = 0
+        # client id of the process that created it: the group dies with
+        # that process's actor (``_destroy_actor``) unless detached
+        self.creator: Optional[str] = None
 
     def dump(self) -> dict:
         return {
@@ -126,6 +129,7 @@ class PlacementGroupRecord:
             "contention_score": self.contention_score,
             "sched_strategy": self.sched_strategy,
             "repack_moves": self.repack_moves,
+            "creator": self.creator,
         }
 
     @classmethod
@@ -139,6 +143,7 @@ class PlacementGroupRecord:
         pg.contention_score = d.get("contention_score")
         pg.sched_strategy = d.get("sched_strategy", "resource-fit")
         pg.repack_moves = d.get("repack_moves", 0)
+        pg.creator = d.get("creator")
         return pg
 
     def to_table(self):
@@ -859,6 +864,12 @@ class GcsServer:
             rec.node_id = target
             rec.address = (target, reply["worker_client_id"])
             rec.direct_addr = tuple(reply["direct_addr"]) if reply.get("direct_addr") else None
+            if rec.state == DEAD:
+                # killed while its creation was in flight: the raylet runs
+                # it now, so kill it there rather than bring it back to
+                # life with nobody holding its handle (it kept its lease)
+                await self._destroy_actor(rec, rec.death_cause or "ray.kill")
+                return
             rec.state = ALIVE
             await self._publish_actor(rec)
             return
@@ -947,6 +958,21 @@ class GcsServer:
                 except Exception:
                     pass
         await self._publish_actor(rec)
+        # fate sharing (ray parity: an actor's non-detached children and
+        # placement groups die with it): a Tune trial actor stopped by its
+        # scheduler takes its train gang and the gang's placement group
+        # with it, so their resources (a share of a card) return to the
+        # cluster instead of staying leased to an orphaned worker
+        owner = rec.address[1] if rec.address else None
+        if owner is None:
+            return
+        for child in list(self.actors.values()):
+            if child.owner_conn_key == owner and child.state != DEAD \
+                    and child.spec.lifetime != "detached":
+                await self._destroy_actor(child, "its owner actor died")
+        for pg in list(self.pgs.values()):
+            if pg.creator == owner and pg.lifetime != "detached":
+                await self._remove_pg(pg.pg_id)
 
     async def rpc_kill_actor(self, conn: Connection, p):
         rec = self.actors.get(p["actor_id"])
@@ -966,6 +992,7 @@ class GcsServer:
             p["pg_id"], p["bundles"], p["strategy"], p.get("name", ""),
             p.get("job_id"), p.get("lifetime"),
         )
+        pg.creator = conn.meta.get("client_id")
         self.pgs[pg.pg_id] = pg
         self._persist_pg(pg)
         spawn(self._schedule_pg(pg))

@@ -7,8 +7,9 @@ seed 0, one fixed batch of 16 x 1024 from seed 1, 3 warm-up and 10 timed
 steps. ``step_grads`` is one step of a configuration from the same seeded
 weights, and ``plain_attention`` routes the model's flash-attention calls to
 the kernels' plain version, so the two paths can be compared on one set of
-weights. Each runs with whatever kernel libraries ``ops.attention`` has
-loaded.
+weights; ``counting_plain_calls`` counts the calls of that plain version
+(none may happen on the card). Each runs with whatever kernel libraries
+``ops.attention`` has loaded.
 """
 
 from __future__ import annotations
@@ -29,6 +30,32 @@ BATCH, SEQ, WARMUP, TIMED = 16, 1024, 3, 10
 def bf16_config() -> gpt2.GPT2Config:
     """The training path's configuration (``bench.py``'s first flash one)."""
     return gpt2.GPT2Config.gpt2_124m(attention="flash", loss_chunks=8)
+
+
+@contextlib.contextmanager
+def counting_plain_calls():
+    """Counts the calls of the kernels' plain versions (the forward's and
+    the backward's) while it is open: yields a one-element list. On a CUDA
+    tensor the wrappers launch their kernels, so the count stays 0 there."""
+    from ray_tpu_torch.ops import attention as attn
+
+    count = [0]
+    saved = {name: getattr(attn, name)
+             for name in ("_flash_plain", "_flash_bwd_plain")}
+
+    def counted(fn):
+        def call(*args, **kw):
+            count[0] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(attn, name, counted(fn))
+    try:
+        yield count
+    finally:
+        for name, fn in saved.items():
+            setattr(attn, name, fn)
 
 
 @contextlib.contextmanager

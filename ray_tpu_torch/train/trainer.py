@@ -38,10 +38,32 @@ class BaseTrainer:
 
     def as_trainable(self):
         """Wrap this trainer as a Tune trainable (ray parity:
-        base_trainer.py:828): waits for the port's Tune."""
-        raise NotImplementedError(
-            "as_trainable waits for the port's Tune (ROADMAP queue 1, "
-            "\"Tune and Data\")")
+        base_trainer.py:828) so Tuner(trainer) works."""
+        trainer = self
+
+        def _trainable(config):
+            import copy
+
+            t = copy.copy(trainer)
+            merged = dict(getattr(t, "train_loop_config", None) or {})
+            merged.update(config.get("train_loop_config", config) or {})
+            t.train_loop_config = merged
+
+            # Relay worker reports up through the Tune session so schedulers
+            # see intermediate results (falls through to the Train session
+            # when no Tune trial is active).
+            from ray_tpu_torch.tune import session as session_mod
+
+            def cb(metrics, checkpoint):
+                session_mod.report(metrics, checkpoint=checkpoint)
+
+            result = t._fit_impl(result_callback=cb)
+            if result.error:
+                raise result.error
+            return result.metrics or {}
+
+        _trainable.__name__ = type(self).__name__
+        return _trainable
 
 
 class DataParallelTrainer(BaseTrainer):

@@ -236,8 +236,16 @@ def test_scaling_config_leases_a_gpu_and_has_no_tpu_fields():
                  "SklearnTrainer"):
         assert not hasattr(train, name)
     assert train.TorchConfig().backend is None  # nccl with a GPU, else gloo
-    with pytest.raises(NotImplementedError, match="Tune"):
-        train.TorchTrainer(lambda: None).as_trainable()
+    # a Tune trainable the port's Tuner accepts: the trial leases no GPU,
+    # its worker bundles (GPU included) cap how many trials run at once
+    from ray_tpu_torch import tune
+
+    trainer = train.TorchTrainer(lambda config: None)
+    trainable = trainer.as_trainable()
+    assert callable(trainable) and trainable.__name__ == "TorchTrainer"
+    tuner = tune.Tuner(trainer)
+    assert tuner._resources == {"CPU": 0.0}
+    assert tuner._nested_resources == {"CPU": 1.0, "GPU": 1.0}
 
 
 def test_nccl_collective_group_needs_a_process_group():
