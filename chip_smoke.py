@@ -243,12 +243,50 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    step ms of steps 2-n under sharing beside phase 13's, peak memory and
    kernel builds, and ASHA's record (rung, lr, loss, cutoff, decision).
 
+22. data_resnet_fit: "TorchTrainer: ResNet-50 on CIFAR-10" through the
+   port's Data, in its own cluster (``ray_tpu_torch.init(num_cpus=4,
+   num_gpus=1)``, shut down at the end). The driver puts two datasets in
+   the object store as blocks (``data.from_blocks``, no task): "parity",
+   phase 14's batch as host arrays (numpy seed 50, 256 images of 32^2 and
+   int64 labels, one block), and "train", 50,000 CIFAR-sized images in 10
+   classes from numpy seed 51 in 50 blocks of 1,000 rows (614.4 MB).
+   ``TorchTrainer(tools/data_runs.resnet_data_loop, ScalingConfig(
+   num_workers=1, use_gpu=True), datasets=...)`` runs phase 14's model,
+   weights and AdamW in a worker on the card; it takes 5 epochs of
+   "parity" and one of "train" through ``get_dataset_shard(name).
+   iter_torch_batches(batch_size=256, device=f"cuda:{local_rank}",
+   drop_last=True)``. Checks: the 5 parity losses within 1e-2 of phase
+   14's (the line says whether they are equal to the bit), the epoch saw
+   195 x 256 rows in 195 steps, every loss finite, no flash kernel
+   launched and no plain call, the worker on ``nvidia-smi``'s card, no
+   process of the session left after shutdown. Prints the epoch's
+   images/s beside phase 14's, the wait for the first batch, the put and
+   fit seconds and the worker's peak memory.
+23. batch_predict_vit: ``BatchPredictor.from_checkpoint(TorchPredictor.
+   pack(ViT-B/16), ProbedTorchPredictor).predict(ds, batch_size=64,
+   concurrency=2, num_cpus=1)``, in its own cluster: phase 13's model and
+   seed-0 weights score 1,024 images of 224^2 (numpy seed 60, 616.6 MB,
+   16 blocks of 64, with an ``id`` column) in two ``map_batches`` actors
+   on the card (they lease CPUs only; the raylet leaves the card visible).
+   ``ProbedTorchPredictor`` (defined here) hands back each row's ``id``
+   and each actor's launch counts. Checks: every id once with 1,000
+   logits; the logits against the driver's own forward of the same model,
+   weights and images in the same batches of 64 at the bf16 ``TOLS``
+   element by element, the argmax equal on every row (the line says
+   whether they are equal to the bit); ``flash_fwd`` launched 12 x 16 =
+   192 times in the actors, no backward launch and no plain call; two
+   actors, neither the driver, on the card; no process left. Prints
+   images/s of the whole ``predict`` and between the first and last
+   scored blocks, each actor's start and load seconds and peak memory, and
+   the driver's in-process images/s for the same forward.
+
 Every phase raises on a failed check; no failure is caught.
 
-The ``kernels`` line comes after phase 21: phase 15's entries, then the
+The ``kernels`` line comes after phase 23: phase 15's entries, then the
 ViT-in-a-trial path's rows (phase 15's times at ViT-B/16's shape with the
-launches the trials' workers counted). Then one line with each phase's
-seconds. The last two lines are the
+launches the trials' workers counted) and the batch-prediction path's
+``flash_fwd`` row (the same times, with the launches the predictor's
+actors counted). Then one line with each phase's seconds. The last two lines are the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
@@ -1267,16 +1305,17 @@ def phase_resnet():
     del batch
     gc.collect()
     torch.cuda.empty_cache()
+    fields = _train_fields(run, RESNET["batch"])
     emit("resnet_train", config="resnet50_cifar",
          stage_sizes=list(cfg.stage_sizes), image_size=cfg.image_size,
          batch=RESNET["batch"], steps=RESNET["steps"], lr=RESNET["lr"],
-         **_train_fields(run, RESNET["batch"]), launches=launches,
-         peak_memory_bytes=peak)
+         **fields, launches=launches, peak_memory_bytes=peak)
     problems = _loss_problems(run["losses"])
     if any(launches.values()):
         problems.append(f"flash kernels launched: {launches}")
     if problems:
         raise AssertionError("resnet_train: " + "; ".join(problems))
+    return run["losses"], fields["images_per_s"]
 
 
 # Switch-MoE LM, ``MoELMConfig()`` (GPT-2 width, 12 layers, 8 experts, an
@@ -1528,6 +1567,14 @@ def _session_processes(session_dir):
         if mark in argv or env_mark in env:
             found.append(int(pid))
     return found
+
+
+def _wait_for_no_processes(session_dir):
+    """The session's processes left 30 s after its shutdown."""
+    deadline = time.time() + 30
+    while time.time() < deadline and _session_processes(session_dir):
+        time.sleep(0.5)
+    return _session_processes(session_dir)
 
 
 def _card_memory_of(pid):
@@ -1880,10 +1927,7 @@ def phase_train_fit(smi, bf16_losses, inproc_step_ms):
     finally:
         rt.shutdown()
         shutil.rmtree(root, ignore_errors=True)
-    deadline = time.time() + 30
-    while time.time() < deadline and _session_processes(session_dir):
-        time.sleep(0.5)
-    left = _session_processes(session_dir)
+    left = _wait_for_no_processes(session_dir)
 
     rep1 = run1["reports"]
     losses = [r["loss"] for r in rep1]
@@ -2056,10 +2100,7 @@ def phase_tune_asha(smi, vit_losses, vit_step_ms):
     finally:
         rt.shutdown()
         shutil.rmtree(root, ignore_errors=True)
-    deadline = time.time() + 30
-    while time.time() < deadline and _session_processes(session_dir):
-        time.sleep(0.5)
-    left = _session_processes(session_dir)
+    left = _wait_for_no_processes(session_dir)
 
     lr_of = {tid: c["train_loop_config"]["lr"]
              for tid, c in scheduler.configs.items()}
@@ -2175,6 +2216,373 @@ def _tune_entries(vit_entries, launches):
                        "phase 15's at this shape in the driver's process")
         rows.append(row)
     return rows
+
+
+# phase 22: phase 14's run (``data_runs.LOOP``) in a ``TorchTrainer``
+# worker, fed by the port's Data: 5 epochs of phase 14's batch, then one
+# epoch of a CIFAR-10-sized training set (50,000 images of 32^2 in 10
+# classes, from numpy seed 51) in blocks of 1,000 rows, batch 256 with
+# drop_last (195 steps)
+DATA_FIT = {"train_rows": 50_000, "block_rows": 1_000, "train_seed": 51,
+            "parity_epochs": 5, "vs_phase14_limit": 1e-2}
+
+
+def _spread(xs):
+    """Mean, median, p90, max and sum of a list of ms."""
+    xs = sorted(xs)
+    return {"mean": statistics.fmean(xs), "median": statistics.median(xs),
+            "p90": xs[int(0.9 * (len(xs) - 1))], "max": xs[-1],
+            "sum": sum(xs)}
+
+
+def phase_data_resnet_fit(smi, resnet_losses, resnet_images_per_s):
+    """"TorchTrainer: ResNet-50 on CIFAR-10" through Data:
+    ``TorchTrainer(data_runs.resnet_data_loop, datasets={"parity", "train"})``
+    with one worker on the card, reading its shards through
+    ``iter_torch_batches(device=...)``. ``resnet_losses`` and
+    ``resnet_images_per_s`` are phase 14's."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.models import vision
+    from ray_tpu_torch.tools import data_runs
+
+    cfg = vision.ResNetConfig.resnet50_cifar()
+    batch = data_runs.LOOP["batch"]
+    t0 = time.perf_counter()
+    parity = dict(zip(("image", "label"), data_runs.image_arrays(
+        50, RESNET["batch"], cfg.image_size, cfg.num_classes)))
+    train_set = dict(zip(("image", "label"), data_runs.image_arrays(
+        DATA_FIT["train_seed"], DATA_FIT["train_rows"], cfg.image_size,
+        cfg.num_classes)))
+    make_s = time.perf_counter() - t0
+    train_bytes = sum(v.nbytes for v in train_set.values())
+    root = tempfile.mkdtemp(prefix="data_fit_")
+    t_init = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    init_s = time.perf_counter() - t_init
+    session_dir = global_worker.node.session_dir
+    try:
+        t0 = time.perf_counter()
+        datasets = {
+            "parity": data_runs.image_dataset(parity, RESNET["batch"]),
+            "train": data_runs.image_dataset(train_set,
+                                             DATA_FIT["block_rows"])}
+        put_s = time.perf_counter() - t0
+        del train_set
+        blocks = {k: v.num_blocks() for k, v in datasets.items()}
+        config = dict(data_runs.LOOP, epochs=(
+            ("parity", DATA_FIT["parity_epochs"]), ("train", 1)))
+        trainer = train.TorchTrainer(
+            data_runs.resnet_data_loop, train_loop_config=config,
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(
+                name="data_fit", storage_path=os.path.join(root, "results")),
+            datasets=datasets)
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    left = _wait_for_no_processes(session_dir)
+    if result.error is not None:
+        raise AssertionError(f"data_resnet_fit: {result.error}")
+    m = result.metrics
+    par, ep = m["datasets"]["parity"], m["datasets"]["train"]
+    vs14 = [abs(a - b) for a, b in zip(par["losses"], resnet_losses)]
+    want_rows = DATA_FIT["train_rows"] // batch * batch
+    emit("data_resnet_fit", config="resnet50_cifar bf16/f32-params AdamW "
+         "lr 1e-4, TorchTrainer(ScalingConfig(num_workers=1, use_gpu=True), "
+         "datasets={parity, train}), iter_torch_batches(batch_size=256, "
+         "device=cuda:local_rank, drop_last=True)",
+         train_rows=DATA_FIT["train_rows"], train_bytes=train_bytes,
+         blocks=blocks, make_s=make_s, put_s=put_s, init_s=init_s,
+         fit_wall_s=fit_s, parity_losses=par["losses"],
+         phase14_losses=resnet_losses,
+         max_loss_diff_vs_phase14=max(vs14 or [0]),
+         parity_equal_to_phase14_bits=par["losses"] == list(resnet_losses),
+         parity_epoch_s=par["epoch_s"], epoch_rows=ep["rows"],
+         epoch_steps=len(ep["losses"]), epoch_s=ep["epoch_s"][0],
+         epoch_images_per_s=ep["images_per_s"][0],
+         phase14_images_per_s=resnet_images_per_s,
+         first_batch_wait_s={"parity": par["first_batch_wait_s"],
+                             "train": ep["first_batch_wait_s"][0]},
+         epoch_losses_first_last=[ep["losses"][0], ep["losses"][-1]],
+         epoch_wait_ms=_spread(ep["wait_ms"]),
+         epoch_step_ms=_spread(ep["step_ms"]),
+         parity_step_ms=par["step_ms"], parity_wait_ms=par["wait_ms"],
+         phase14_step_ms=batch / resnet_images_per_s * 1e3,
+         peak_memory_bytes=m["peak_memory_bytes"], launches=m["launches"],
+         plain_calls=m["plain_calls"], device_name=m["device_name"],
+         processes_left=left,
+         note="epoch wall on the worker's host clock from the shard's "
+              "iterator to its last step (each step ends in float(loss)); "
+              "phase 14's images/s is its median step's, in this process")
+    problems = []
+    if len(par["losses"]) != DATA_FIT["parity_epochs"] or \
+            max(vs14) > DATA_FIT["vs_phase14_limit"]:
+        problems.append(f"parity losses {par['losses']} vs phase 14's "
+                        f"{resnet_losses}")
+    if ep["rows"] != want_rows or len(ep["losses"]) != want_rows // batch:
+        problems.append(f"the epoch saw {ep['rows']} rows in "
+                        f"{len(ep['losses'])} steps, want {want_rows}")
+    if not all(math.isfinite(x) for x in par["losses"] + ep["losses"]):
+        problems.append("non-finite loss")
+    if any(m["launches"].values()) or m["plain_calls"]:
+        problems.append(f"flash kernels launched: {m['launches']}, plain "
+                        f"calls {m['plain_calls']}")
+    if m["device_name"] != smi.split(",")[0].strip():
+        problems.append(f"worker on {m['device_name']}")
+    if left:
+        problems.append(f"session processes left after shutdown: {left}")
+    if problems:
+        raise AssertionError("data_resnet_fit: " + "; ".join(problems))
+
+
+# phase 23: ViT-B/16 (phase 13's seed-0 weights) scored over 1,024 images
+# of 224^2 from numpy seed 60 in 16 blocks of 64, batch 64, by two
+# actors at one CPU each (the reference's defaults)
+PREDICT = {"rows": 1024, "block_rows": 64, "seed": 60, "batch": 64,
+           "concurrency": 2, "num_cpus": 1}
+
+
+def _probed_torch_predictor():
+    """``TorchPredictor`` that takes an ``id`` column beside the images
+    and hands it back beside ``predictions``, with what its actor counted
+    while it scored the batch: ``flash_fwd`` and backward launches and
+    plain-version calls, when it began the batch (wall clock) and the ms
+    of ``TorchPredictor.predict`` on it (in the batch's first row, 0 in the
+    others); its pid, the seconds from its process's start to its model on
+    the card, ``from_checkpoint``'s part of them, and its peak card memory.
+    Built in a function, so the class travels to the actors by value."""
+    from ray_tpu_torch.train.predictor import TorchPredictor
+
+    class ProbedTorchPredictor(TorchPredictor):
+        @classmethod
+        def from_checkpoint(cls, checkpoint, device=None, **kw):
+            from ray_tpu_torch.tools.tune_runs import _process_start
+
+            t0 = time.time()
+            inst = super().from_checkpoint(checkpoint, device=device, **kw)
+            torch.cuda.synchronize(inst._device)
+            inst.load_s = time.time() - t0
+            inst.start_s = time.time() - _process_start()
+            return inst
+
+        def predict(self, batch):
+            import os as _os
+
+            from ray_tpu_torch.ops import attention as attn
+            from ray_tpu_torch.tools.train_runs import counting_plain_calls
+
+            ids = batch.pop("id")
+            before = {n: getattr(attn, f"{n}_launches") for n in KERNELS}
+            began = time.time()
+            t0 = time.perf_counter()
+            with counting_plain_calls() as plain:
+                out = super().predict(batch)
+            predict_ms = (time.perf_counter() - t0) * 1e3
+            n = len(ids)
+            first = np.zeros(n, np.int64)
+            for name in KERNELS:
+                out[name] = first.copy()
+                out[name][0] = getattr(attn, f"{name}_launches") - \
+                    before[name]
+            out["plain_calls"] = first.copy()
+            out["plain_calls"][0] = plain[0]
+            out["began"] = np.zeros(n)
+            out["began"][0] = began
+            out["predict_ms"] = np.zeros(n)
+            out["predict_ms"][0] = predict_ms
+            out["id"] = ids
+            out["pid"] = np.full(n, _os.getpid())
+            out["start_s"] = np.full(n, self.start_s)
+            out["load_s"] = np.full(n, self.load_s)
+            out["peak_memory_bytes"] = np.full(
+                n, torch.cuda.max_memory_allocated(self._device))
+            out["device_name"] = np.array(
+                [torch.cuda.get_device_name(self._device)] * n, object)
+            return out
+
+    return ProbedTorchPredictor
+
+
+def phase_batch_predict_vit(smi):
+    """``BatchPredictor.from_checkpoint(TorchPredictor.pack(ViT-B/16),
+    ProbedTorchPredictor).predict(ds)``: two ``map_batches`` actors score
+    the set on the card through ``flash_fwd`` (non-causal, B*H 768, S 197,
+    D 64; 12 launches a batch); the logits against the driver's own
+    forward of the same model, weights and images in the same batches.
+    Returns the actors' summed launches."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.models import vision
+    from ray_tpu_torch.tools import data_runs, vision_runs
+    from ray_tpu_torch.train.predictor import BatchPredictor, TorchPredictor
+
+    if __name__ != "__main__":
+        # imported by a short script: send the predictor by value all the
+        # same
+        import cloudpickle
+
+        cloudpickle.register_pickle_by_value(sys.modules[__name__])
+    cfg = vision.ViTConfig.vit_b16()
+    net = vision_runs.model(cfg, "cuda")
+    ck = TorchPredictor.pack(net)
+    cols = data_runs.vit_image_columns(PREDICT["seed"], PREDICT["rows"],
+                                       cfg.image_size)
+    root = tempfile.mkdtemp(prefix="batch_predict_")
+    t_init = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    init_s = time.perf_counter() - t_init
+    session_dir = global_worker.node.session_dir
+    batches, arrivals = [], []
+    try:
+        ds = data_runs.image_dataset(cols, PREDICT["block_rows"])
+        bp = BatchPredictor.from_checkpoint(ck, _probed_torch_predictor())
+        t0 = time.perf_counter()
+        scored = bp.predict(ds, batch_size=PREDICT["batch"],
+                            concurrency=PREDICT["concurrency"],
+                            num_cpus=PREDICT["num_cpus"])
+        for out in scored.iter_batches(batch_size=None):
+            arrivals.append(time.perf_counter() - t0)
+            batches.append(out)
+        split = _predict_split(net, [rt.get(ref) for ref, _ in ds._bundles()])
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    left = _wait_for_no_processes(session_dir)
+    got = {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+    order = np.argsort(got["id"], kind="stable")
+    logits = torch.from_numpy(got["predictions"][order])
+
+    # the driver's forward: the same model, weights and images in the same
+    # batches of 64; the second pass is timed
+    data_runs.batched_logits(net, cols["image"], PREDICT["batch"], "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = torch.from_numpy(data_runs.batched_logits(
+        net, cols["image"], PREDICT["batch"], "cuda"))
+    inproc_s = time.perf_counter() - t0
+    del net
+    torch.cuda.empty_cache()
+    ok, err, share = _close(logits, want, *TOLS[torch.bfloat16])
+    argmax_equal = bool((logits.argmax(-1) == want.argmax(-1)).all())
+    launches = {n: int(got[n].sum()) for n in KERNELS}
+    actors = {}
+    for pid in sorted(set(got["pid"].tolist())):
+        rows = got["pid"] == pid
+        heads = rows & (got["began"] > 0)
+        began = np.sort(got["began"][heads])
+        actors[pid] = {"rows": int(rows.sum()),
+                       "predict_ms": got["predict_ms"][heads].tolist(),
+                       "predict_ms_median": float(np.median(
+                           got["predict_ms"][heads])),
+                       "batch_interval_ms_median": float(np.median(
+                           np.diff(began))) * 1e3 if len(began) > 1
+                       else None,
+                       "start_s": float(got["start_s"][rows][0]),
+                       "load_s": float(got["load_s"][rows][0]),
+                       "peak_memory_bytes": int(
+                           got["peak_memory_bytes"][rows].max()),
+                       "device_name": got["device_name"][rows][0]}
+    n = PREDICT["rows"]
+    steady = (len(batches) - 1) * PREDICT["batch"] / \
+        (arrivals[-1] - arrivals[0]) if len(batches) > 1 else None
+    emit("batch_predict_vit", config="vit_b16 bf16/f32-params, "
+         "BatchPredictor(TorchPredictor).predict(batch_size=64, "
+         "concurrency=2, num_cpus=1)", rows=n,
+         image_bytes=cols["image"].nbytes, blocks=ds.num_blocks(),
+         init_s=init_s, predict_wall_s=arrivals[-1],
+         images_per_s=n / arrivals[-1],
+         first_batch_s=arrivals[0], steady_images_per_s=steady,
+         inproc_s=inproc_s, inproc_images_per_s=n / inproc_s,
+         max_abs_err=err, share_of_limit=share,
+         tolerance=_tol_fields(torch.bfloat16),
+         equal_to_inproc_bits=bool(torch.equal(logits, want)),
+         argmax_equal=argmax_equal, launches=launches,
+         driver_predict_split_ms=split,
+         plain_calls=int(got["plain_calls"].sum()), actors=actors,
+         processes_left=left,
+         note="predict wall on the driver's host clock from predict() to "
+              "the last scored block; steady from the first block's "
+              "arrival to the last's; the in-process forward's second "
+              "pass, to a sync")
+    problems = []
+    if sorted(got["id"].tolist()) != list(range(n)):
+        problems.append("ids missing or repeated")
+    if got["predictions"].shape != (n, cfg.num_classes):
+        problems.append(f"predictions {got['predictions'].shape}")
+    if not ok or not argmax_equal:
+        problems.append(f"logits vs in-process: max abs err {err}, share "
+                        f"{share}, argmax equal {argmax_equal}")
+    want_launches = cfg.n_layer * n // PREDICT["batch"]
+    if launches != {"flash_fwd": want_launches, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}:
+        problems.append(f"launches {launches}, want flash_fwd "
+                        f"{want_launches} and no backward")
+    if int(got["plain_calls"].sum()):
+        problems.append(f"{int(got['plain_calls'].sum())} plain calls")
+    card = smi.split(",")[0].strip()
+    if len(actors) != PREDICT["concurrency"] or any(
+            a["device_name"] != card for a in actors.values()):
+        problems.append(f"actors {actors}")
+    if os.getpid() in actors:
+        problems.append("scored in the driver's process")
+    if left:
+        problems.append(f"session processes left after shutdown: {left}")
+    if problems:
+        raise AssertionError("batch_predict_vit: " + "; ".join(problems))
+    return launches
+
+
+def _predict_split(net, blocks):
+    """Medians over ``blocks`` (read back from the object store, as an actor
+    gets them) of the ms of each part of ``TorchPredictor.predict``, run
+    in this process, each part to a sync: the feature matrix, ``astype``,
+    the copy to the card, the forward, the copy back."""
+    from ray_tpu_torch.train.predictor import _as_feature_matrix
+
+    parts = {k: [] for k in ("feature_matrix", "astype", "to_device",
+                             "forward", "to_host")}
+    dev = next(net.parameters()).device
+    with torch.inference_mode():
+        for block in blocks:
+            t = [time.perf_counter()]
+            x = _as_feature_matrix({"image": block["image"]})
+            t.append(time.perf_counter())
+            x = x.astype(np.float32)
+            t.append(time.perf_counter())
+            x = torch.from_numpy(x).to(dev)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            y = net(x)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            y.cpu().numpy()
+            t.append(time.perf_counter())
+            for k, a, b in zip(parts, t, t[1:]):
+                parts[k].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def _predict_entries(vit_entries, launches):
+    """The ``kernels`` line's row of the batch-prediction path: phase 15's
+    ``flash_fwd`` entry at ViT-B/16's shape (forward only) with the
+    launches the predictor's actors counted."""
+    return [dict(entry, path="batch_predict_vit",
+                 launches=launches[entry["name"]],
+                 note="launches summed over the predictor's actors; times "
+                      "are phase 15's at this shape in the driver's "
+                      "process")
+            for entry in vit_entries if entry["name"] == "flash_fwd"]
 
 
 def _bound(nbytes, flops):
@@ -2505,7 +2913,7 @@ def main() -> int:
           LlamaConfig.llama3_8b(), 30)
     llama_train = timed("llama_train", phase_llama_train)
     vit_train = timed("vit_train", phase_vit)
-    timed("resnet_train", phase_resnet)
+    resnet_train = timed("resnet_train", phase_resnet)
     moe_train = timed("moe_train", phase_moe_train)
     kernels = timed("kernels", phase_kernels, serve_launches, train_launches,
                     step_ms, llama_serve, llama_train, vit_train, moe_train)
@@ -2515,8 +2923,12 @@ def main() -> int:
     timed("train_fit", phase_train_fit, smi, bf16_losses, step_ms)
     tune_launches = timed("tune_asha_vit", phase_tune_asha, smi, vit_train[2],
                           vit_train[1])
-    kernels += _tune_entries([e for e in kernels if e["path"] == "vit_train"],
-                             tune_launches)
+    timed("data_resnet_fit", phase_data_resnet_fit, smi, *resnet_train)
+    predict_launches = timed("batch_predict_vit", phase_batch_predict_vit,
+                             smi)
+    vit_entries = [e for e in kernels if e["path"] == "vit_train"]
+    kernels += _tune_entries(vit_entries, tune_launches)
+    kernels += _predict_entries(vit_entries, predict_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("seconds", **seconds)
     print(smi, flush=True)

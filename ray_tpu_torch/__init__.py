@@ -62,7 +62,8 @@ def __getattr__(name):
     # Lazy subpackage access (ray parity: ray.serve / ray.util / ... are
     # importable attributes) without paying their import cost up front.
     # Only the subpackages the port has; others join as they are ported.
-    if name in ("serve", "util", "dag", "train", "air", "parallel", "tune"):
+    if name in ("serve", "util", "dag", "train", "air", "parallel", "tune",
+                "data"):
         import importlib
 
         mod = importlib.import_module(f"ray_tpu_torch.{name}")

@@ -18,12 +18,20 @@ from ray_tpu_torch.train.trainer import (
     DataParallelTrainer,
     TorchTrainer,
 )
+from ray_tpu_torch.train.predictor import (BatchPredictor, Predictor,
+                                           SklearnPredictor, TorchPredictor,
+                                           XGBoostPredictor)
 from ray_tpu_torch.train.worker_group import WorkerGroup
 
-# The reference's JaxTrainer/JaxConfig are TorchTrainer/TorchConfig here;
-# its Sklearn, Tensorflow, GBDT and HuggingFace trainers and its predictors
-# are not ported yet (ROADMAP queue 1).
+# The reference's JaxTrainer/JaxConfig/JaxPredictor are TorchTrainer/
+# TorchConfig/TorchPredictor here; its Sklearn, Tensorflow, GBDT and
+# HuggingFace trainers are not ported yet (ROADMAP queue 1).
 __all__ = [
+    "BatchPredictor",
+    "TorchPredictor",
+    "Predictor",
+    "SklearnPredictor",
+    "XGBoostPredictor",
     "Backend",
     "BackendConfig",
     "BackendExecutor",
