@@ -279,6 +279,38 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    images/s of the whole ``predict`` and between the first and last
    scored blocks, each actor's start and load seconds and peak memory, and
    the driver's in-process images/s for the same forward.
+24. rllib_ppo (runs after phase 2, before any profiler session): the
+   tuned example ``cartpole-ppo`` as the repo ships it, built by
+   ``run_regression.build_algorithm``: PPO, 2 env runners on CPUs,
+   fragments of 256, lr 5e-3, 6 epochs x minibatch 128, seed 0, the
+   learner in the driver on the card. ``train()`` until
+   ``episode_return_mean`` reaches the yaml's bar (100) or its budget (30
+   iterations). Checks: the bar is reached; the learner's parameters and
+   Adam state on the card; the driver has the card open (its
+   ``/dev/nvidia*`` files) and no session process does (the runners see no
+   card); no flash kernel launched; the timesteps equal the
+   rows sampled; one ``PPOLearner.update`` of the trained weights on one
+   batch (512 rows from numpy seed 70; 24 Adam steps) on the card and on
+   the CPU, TF32 off, agree in metrics and weights at rtol 1e-5, atol
+   1e-6; no process left. Prints iterations to the bar, env steps/s, each
+   iteration's host seconds of sampling and of ``learner.update``, one
+   update's ms by CUDA events, its kernels' busy ms, launches and idle
+   share (the profiler, on the last iteration's batch), and the learner's
+   peak card memory.
+25. rllib_impala_group (after phase 24): the tuned example
+   ``cartpole-impala-multilearner``: IMPALA, 2 env runners on CPUs,
+   fragments of 256, seed 0, 2 learner actors at ``num_gpus_per_learner``
+   0.5 sharing the card, their gradients mean-allreduced as one flat
+   vector over the "store" collective; until the yaml's bar (60) or budget
+   (40 iterations). Checks: the bar is reached; both learners on the card
+   and with it open, no other session process; the two ranks'
+   weights equal at rtol 1e-5, atol 1e-6 after the last iteration (the line
+   says whether to the bit); the timesteps equal the rows sampled; no
+   process left; v-trace on a fragment of 256 (numpy seed 71) on the card
+   against the CPU at rtol 1e-4, atol 1e-4. Prints iterations to the bar,
+   each iteration's seconds of sampling and of the group's updates, each
+   rank's update and allreduce seconds, and v-trace's ms, busy ms and
+   launches on the card beside its CPU ms.
 
 Every phase raises on a failed check; no failure is caught.
 
@@ -2585,6 +2617,387 @@ def _predict_entries(vit_entries, launches):
             for entry in vit_entries if entry["name"] == "flash_fwd"]
 
 
+# phases 24-25: RLlib's tuned examples as the repo ships them, the learner
+# on the card and the env runners on CPUs; the bar and the iteration budget
+# are each yaml's own stop block. The CUDA-vs-CPU check of phase 24 runs
+# ``PPOLearner.update`` on one batch of ``cuda_cpu_rows`` rows from numpy
+# seed 70 with the trained weights; phase 25 times v-trace on a fragment of
+# ``vtrace_rows`` from numpy seed 71.
+RLLIB = {"ppo": "cartpole-ppo", "impala": "cartpole-impala-multilearner",
+         "cuda_cpu_rows": 512, "cuda_cpu_seed": 70, "rtol": 1e-5,
+         "atol": 1e-6, "vtrace_rows": 256, "vtrace_seed": 71}
+
+
+def _tuned_example(name):
+    from ray_tpu_torch.rllib.run_regression import (
+        TUNED_EXAMPLES_DIR,
+        load_experiments,
+    )
+
+    return load_experiments(TUNED_EXAMPLES_DIR, name)[name]
+
+
+def _timed_method(obj, name, log):
+    """Wrap ``obj.name`` so each call appends its host seconds and what it
+    returned to ``log``."""
+    inner = getattr(obj, name)
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = inner(*args)
+        log.append({"s": time.perf_counter() - t0, "out": out})
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _train_to_bar(algo, stop):
+    """``algo.train()`` until ``episode_return_mean`` reaches the yaml's bar
+    or its iteration budget is spent: (iterations, best, returns, host
+    seconds of each ``train()``)."""
+    best, returns, iter_s = float("-inf"), [], []
+    for it in range(1, stop["training_iteration"] + 1):
+        t0 = time.perf_counter()
+        result = algo.train()
+        iter_s.append(time.perf_counter() - t0)
+        returns.append(result.get("episode_return_mean"))
+        if returns[-1] is not None:
+            best = max(best, returns[-1])
+        if best >= stop["episode_return_mean"]:
+            break
+    return it, best, returns, iter_s
+
+
+def _steady_rate(samples, iter_s):
+    """Env steps a second after the first iteration (which starts the
+    runners' processes and the learner's CUDA work)."""
+    return sum(f.count for s in samples[1:] for f in s["out"]) / \
+        sum(iter_s[1:]) if len(iter_s) > 1 else None
+
+
+def _rows(samples):
+    """Rows of every fragment that ``Algorithm._sample_all`` returned."""
+    return sum(f.count for s in samples for f in s["out"])
+
+
+def _card_fds(pid):
+    """How many of ``pid``'s open files are the card's device nodes
+    (``/dev/nvidia*``): a process with a CUDA context holds some. (Where
+    ``nvidia-smi`` lists no process, as in a container, ``_card_memory_of``
+    cannot tell.)"""
+    n = 0
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        with contextlib.suppress(OSError):
+            n += os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia")
+    return n
+
+
+def _on_card(session_dir, allowed):
+    """Session processes other than ``allowed`` that have the card open:
+    {pid: its open files on the card}."""
+    return {pid: n for pid in _session_processes(session_dir)
+            if pid not in allowed and (n := _card_fds(pid))}
+
+
+def _ppo_batch(rows, seed):
+    """A PPO train batch (CartPole's shapes) from numpy ``seed``."""
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+
+    rng = np.random.default_rng(seed)
+    return SampleBatch({
+        "obs": rng.normal(size=(rows, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, rows).astype(np.int32),
+        "logp": np.log(rng.uniform(0.2, 0.8, rows)).astype(np.float32),
+        "advantages": rng.normal(size=rows).astype(np.float32),
+        "value_targets": rng.normal(5.0, 3.0, rows).astype(np.float32)})
+
+
+def _cuda_vs_cpu_update(config, weights):
+    """One ``PPOLearner.update`` of the same weights on the same batch, on
+    the card and on the CPU: (max abs error of the metrics, of the weights,
+    whether both agree at the stated tolerance, whether to the bit)."""
+    from ray_tpu_torch.rllib.learner import PPOLearner
+    from ray_tpu_torch.rllib.rl_module import RLModule
+
+    batch = _ppo_batch(RLLIB["cuda_cpu_rows"], RLLIB["cuda_cpu_seed"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        module = RLModule((4,), 2, seed=0, device=dev,
+                          hiddens=config.model["hiddens"])
+        module.set_state(weights)
+        learner = PPOLearner(module, config)
+        metrics = learner.update(batch)
+        out[dev] = (metrics, module.get_state())
+    (m_gpu, w_gpu), (m_cpu, w_cpu) = out["cuda"], out["cpu"]
+    rtol, atol = RLLIB["rtol"], RLLIB["atol"]
+    metric_err = max(abs(m_gpu[k] - m_cpu[k]) for k in m_cpu)
+    weight_err = max(float(np.abs(w_gpu[k] - w_cpu[k]).max()) for k in w_cpu)
+    close = all(np.allclose(m_gpu[k], m_cpu[k], rtol=rtol, atol=atol)
+                for k in m_cpu) and all(
+        np.allclose(w_gpu[k], w_cpu[k], rtol=rtol, atol=atol) for k in w_cpu)
+    bits = m_gpu == m_cpu and all(np.array_equal(w_gpu[k], w_cpu[k])
+                                  for k in w_cpu)
+    return {"metrics_max_abs_err": metric_err,
+            "weights_max_abs_err": weight_err, "rtol": rtol, "atol": atol,
+            "agree": close, "equal_bits": bits,
+            "rows": RLLIB["cuda_cpu_rows"],
+            "adam_steps": config.num_epochs * (
+                RLLIB["cuda_cpu_rows"] // config.minibatch_size)}
+
+
+def _update_profile(learner, batch):
+    """One ``learner.update(batch)`` on the card: its ms by CUDA events
+    (median of 3; the update ends in a host read of its metrics), then
+    under the profiler its kernels' busy ms and launches per call, and the
+    idle share of the events' span."""
+    from ray_tpu_torch.tools import timing
+
+    spans = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        learner.update(batch)
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+    by_kernel, launches = timing.kernel_ms(lambda: learner.update(batch), 3)
+    busy = sum(by_kernel.values())
+    event_ms = statistics.median(spans)
+    return {"event_ms": event_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / event_ms, "launches": launches,
+            "top_kernels_ms": dict(list(by_kernel.items())[:5])}
+
+
+def phase_rllib_ppo(smi):
+    """``cartpole-ppo`` as the repo ships it: ``PPOConfig`` built by
+    ``run_regression.build_algorithm``, 2 env runners on CPUs, fragments
+    of 256, lr 5e-3, 6 epochs of minibatches of 128, seed 0, the learner
+    in the driver on the card (``num_gpus_per_learner`` 1, the default)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.rllib.run_regression import build_algorithm
+
+    spec = _tuned_example(RLLIB["ppo"])
+    stop = spec["stop"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    init_s = time.perf_counter() - t0
+    session_dir = global_worker.node.session_dir
+    samples, updates = [], []
+    try:
+        t0 = time.perf_counter()
+        algo = build_algorithm(spec)
+        build_s = time.perf_counter() - t0
+        learner = algo.learner
+        _timed_method(algo, "_sample_all", samples)
+        _timed_method(learner, "update", updates)
+        for name in KERNELS:
+            setattr(attn, f"{name}_launches", 0)
+        iters, best, returns, iter_s = _train_to_bar(algo, stop)
+        update_s = [u["s"] for u in updates]  # the training's, not below
+        flash = {n: getattr(attn, f"{n}_launches") for n in KERNELS}
+        peak = torch.cuda.max_memory_allocated(dev)
+        param_devices = sorted({str(p.device) for p in learner.params})
+        state_devices = sorted({str(v.device) for s in
+                                learner.optimizer.state.values()
+                                for v in s.values() if torch.is_tensor(v)
+                                and v.dim() > 0})
+        on_card = _on_card(session_dir, ())
+        driver_fds = _card_fds(os.getpid())
+        timesteps = algo._timesteps
+        weights = learner.get_weights()
+        from ray_tpu_torch.rllib.sample_batch import SampleBatch, compute_gae
+
+        cfg = algo.config
+        batch = SampleBatch.concat([
+            compute_gae(f, float(f["bootstrap_value"][-1]), cfg.gamma,
+                        cfg.lambda_) for f in samples[-1]["out"]])
+        profile = _update_profile(learner, batch)
+        cuda_cpu = _cuda_vs_cpu_update(cfg, weights)
+    finally:
+        try:
+            algo.stop()
+        finally:
+            rt.shutdown()
+    left = _wait_for_no_processes(session_dir)
+    train_s = sum(iter_s)
+    emit("rllib_ppo", config=f"{RLLIB['ppo']} (ray_tpu_torch/rllib/"
+         "tuned_examples): PPO, 2 CPU env runners, fragments of 256, lr "
+         "5e-3, 6 epochs x minibatch 128, seed 0, learner in the driver on "
+         "the card", bar=stop["episode_return_mean"],
+         budget=stop["training_iteration"], iterations=iters, best=best,
+         returns=returns, timesteps=timesteps,
+         env_steps_per_s=timesteps / train_s, train_s=train_s,
+         init_s=init_s, build_s=build_s, iteration_s=iter_s,
+         steady_env_steps_per_s=_steady_rate(samples, iter_s),
+         sample_s=[s["s"] for s in samples], update_s=update_s,
+         update_profile=profile, learner_peak_memory_bytes=peak,
+         param_devices=param_devices, adam_state_devices=state_devices,
+         session_processes_on_card=on_card,
+         driver_card_fds=driver_fds, flash_launches=flash,
+         cuda_vs_cpu_update=cuda_cpu, processes_left=left,
+         device_name=torch.cuda.get_device_name(dev), nvidia_smi=smi,
+         note="host clock around algo.train(), Algorithm._sample_all and "
+              "learner.update (which ends in a host read of its metrics); "
+              "update_profile on the last iteration's batch after the run")
+    problems = []
+    if best < stop["episode_return_mean"]:
+        problems.append(f"best {best} below the bar in {iters} iterations")
+    if param_devices != [str(dev)] or state_devices != [str(dev)]:
+        problems.append(f"learner on {param_devices}, Adam state on "
+                        f"{state_devices}")
+    if on_card or not driver_fds:
+        problems.append(f"session processes on the card: {on_card}; the "
+                        f"driver's open files on it: {driver_fds}")
+    if not cuda_cpu["agree"]:
+        problems.append(f"CUDA vs CPU update: {cuda_cpu}")
+    if any(flash.values()):
+        problems.append(f"flash kernels launched: {flash}")
+    if timesteps != _rows(samples):
+        problems.append(f"timesteps {timesteps} vs sampled {_rows(samples)}")
+    if left:
+        problems.append(f"session processes left after shutdown: {left}")
+    if problems:
+        raise AssertionError("rllib_ppo: " + "; ".join(problems))
+
+
+def _vtrace_profile():
+    """v-trace over one fragment on the card (the IMPALA learner's loop, one
+    ``addcmul`` launch a step): ms by CUDA events, kernels' busy ms and
+    launches per call from the profiler, and the same loop's host ms on
+    the CPU."""
+    from ray_tpu_torch.rllib.learner import vtrace
+    from ray_tpu_torch.tools import timing
+
+    n = RLLIB["vtrace_rows"]
+    rng = np.random.default_rng(RLLIB["vtrace_seed"])
+    cols = [np.log(rng.uniform(0.2, 0.8, n)).astype(np.float32),
+            np.log(rng.uniform(0.2, 0.8, n)).astype(np.float32),
+            np.ones(n, np.float32), rng.normal(size=n).astype(np.float32),
+            rng.normal(size=n).astype(np.float32), rng.uniform(size=n) < 0.02,
+            rng.uniform(size=n) < 0.01]
+    on = {d: [torch.from_numpy(c).to(d) for c in cols] for d in
+          ("cuda", "cpu")}
+    got = [t.cpu() for t in vtrace(*on["cuda"], 0.99)]
+    want = vtrace(*on["cpu"], 0.99)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    # 256 steps of a recursion, fused multiply-adds on the card
+    agree = all(torch.allclose(g, w, rtol=1e-4, atol=1e-4)
+                for g, w in zip(got, want))
+    ms = timing.time_ms(lambda: vtrace(*on["cuda"], 0.99), 20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        vtrace(*on["cpu"], 0.99)
+    cpu_ms = (time.perf_counter() - t0) / 20 * 1e3
+    by_kernel, launches = timing.kernel_ms(
+        lambda: vtrace(*on["cuda"], 0.99), 3)
+    return {"rows": n, "ms": ms, "device_busy_ms": sum(by_kernel.values()),
+            "launches": launches, "cpu_ms": cpu_ms,
+            "max_abs_err_vs_cpu": err, "agree": agree,
+            "rtol": 1e-4, "atol": 1e-4}
+
+
+def phase_rllib_impala_group(smi):
+    """``cartpole-impala-multilearner`` as the repo ships it: IMPALA, 2 env
+    runners on CPUs, fragments of 256, seed 0, and 2 learner actors at
+    ``num_gpus_per_learner=0.5`` on the one card, their gradients
+    mean-allreduced as one flat vector over the "store" collective."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.rllib.run_regression import build_algorithm
+
+    spec = _tuned_example(RLLIB["impala"])
+    stop = spec["stop"]
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    init_s = time.perf_counter() - t0
+    session_dir = global_worker.node.session_dir
+    samples, updates = [], []
+    try:
+        t0 = time.perf_counter()
+        algo = build_algorithm(spec)
+        build_s = time.perf_counter() - t0
+        group = algo.learner
+        _timed_method(algo, "_sample_all", samples)
+        _timed_method(group, "update", updates)
+        iters, best, returns, iter_s = _train_to_bar(algo, stop)
+        workers = group.workers
+        infos = rt.get([w.device_info.remote() for w in workers], timeout=60)
+        timings = rt.get([w.pop_timings.remote() for w in workers],
+                         timeout=60)
+        weights = rt.get([w.get_weights.remote() for w in workers],
+                         timeout=60)
+        learner_pids = {i["pid"] for i in infos}
+        learner_fds = {pid: _card_fds(pid) for pid in learner_pids}
+        on_card = _on_card(session_dir, learner_pids)
+        timesteps = algo._timesteps
+    finally:
+        try:
+            algo.stop()
+        finally:
+            rt.shutdown()
+    left = _wait_for_no_processes(session_dir)
+    w0, w1 = weights
+    weight_diff = max(float(np.abs(w0[k] - w1[k]).max()) for k in w0)
+    equal_bits = all(np.array_equal(w0[k], w1[k]) for k in w0)
+    frags = spec["config"]["env_runners"]["num_env_runners"]
+    rank_update_s = [[t["update_s"] for t in ts] for ts in timings]
+    rank_allreduce_s = [[t["allreduce_s"] for t in ts] for ts in timings]
+    vt = _vtrace_profile()
+    train_s = sum(iter_s)
+    emit("rllib_impala_group", config=f"{RLLIB['impala']} (ray_tpu_torch/"
+         "rllib/tuned_examples): IMPALA, 2 CPU env runners, fragments of "
+         "256, seed 0, 2 learner actors at num_gpus_per_learner=0.5, "
+         "gradients mean-allreduced over the store collective",
+         bar=stop["episode_return_mean"], budget=stop["training_iteration"],
+         iterations=iters, best=best, returns=returns, timesteps=timesteps,
+         sampled_rows=_rows(samples),
+         env_steps_per_s=timesteps / train_s, train_s=train_s,
+         init_s=init_s, build_s=build_s, iteration_s=iter_s,
+         steady_env_steps_per_s=_steady_rate(samples, iter_s),
+         sample_s=[s["s"] for s in samples],
+         group_update_s=[u["s"] for u in updates],
+         updates_per_iteration=frags,
+         rank_update_s=rank_update_s, rank_allreduce_s=rank_allreduce_s,
+         learners=infos, learner_card_fds=learner_fds,
+         other_session_processes_on_card=on_card,
+         rank_weights_max_abs_diff=weight_diff,
+         rank_weights_equal_bits=equal_bits, vtrace=vt,
+         processes_left=left, device_name=torch.cuda.get_device_name(0),
+         nvidia_smi=smi,
+         note="host clock around algo.train(), Algorithm._sample_all and "
+              "LearnerGroup.update (one call a fragment); each rank's "
+              "update and allreduce seconds on its own host clock (the "
+              "update ends in a host read of its metrics); v-trace in the "
+              "driver on the card and on the CPU")
+    problems = []
+    if best < stop["episode_return_mean"]:
+        problems.append(f"best {best} below the bar in {iters} iterations")
+    card = smi.split(",")[0].strip()
+    if len(infos) != 2 or any(i["device"] == "cpu" or i["device_name"] != card
+                              for i in infos):
+        problems.append(f"learners {infos}")
+    if not all(learner_fds.values()):
+        problems.append(f"a learner has the card closed: {learner_fds}")
+    if on_card:
+        problems.append(f"other session processes on the card: {on_card}")
+    if not all(np.allclose(w0[k], w1[k], rtol=RLLIB["rtol"],
+                           atol=RLLIB["atol"]) for k in w0):
+        problems.append(f"rank weights differ by {weight_diff}")
+    if timesteps != _rows(samples):
+        problems.append(f"timesteps {timesteps} vs sampled {_rows(samples)}")
+    if not vt["agree"]:
+        problems.append(f"v-trace on the card vs the CPU: {vt}")
+    if left:
+        problems.append(f"session processes left after shutdown: {left}")
+    if problems:
+        raise AssertionError("rllib_impala_group: " + "; ".join(problems))
+
+
 def _bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the bf16 tensor-core peak."""
@@ -2897,6 +3310,10 @@ def main() -> int:
 
     smi = timed("device", phase_device)
     timed("build", phase_build)
+    # the RLlib phases run before any profiler session of this process
+    # (timing.py): their learners' updates are many small launches
+    timed("rllib_ppo", phase_rllib_ppo, smi)
+    timed("rllib_impala_group", phase_rllib_impala_group, smi)
     timed("kernel_vs_plain", phase_kernel_vs_plain)
     timed("bwd_kernel_vs_plain", phase_bwd_kernel_vs_plain)
     timed("serve_f32", phase_serve_f32)

@@ -63,7 +63,7 @@ def __getattr__(name):
     # importable attributes) without paying their import cost up front.
     # Only the subpackages the port has; others join as they are ported.
     if name in ("serve", "util", "dag", "train", "air", "parallel", "tune",
-                "data"):
+                "data", "rllib"):
         import importlib
 
         mod = importlib.import_module(f"ray_tpu_torch.{name}")

@@ -1,6 +1,7 @@
 """Weight bridge: the Flax GPT-2, Llama, ViT, ResNet and Switch-MoE LM
 parameter trees to the torch ``state_dict``s, and optax's AdamW state to
-torch's.
+torch's; and RLlib's MLP modules (actor-critic, dueling Q, continuous
+actor and critics, SAC's twin Q towers).
 
 The trees hold numpy arrays (``jax.tree.map(np.asarray, tree)`` on the JAX
 side), so this module needs neither JAX nor the JAX package. Dense
@@ -199,3 +200,38 @@ def _load_adam(opt_state_tree, model, optimizer, convert) -> None:
     optimizer.load_state_dict({
         "state": state,
         "param_groups": optimizer.state_dict()["param_groups"]})
+
+
+def _mlp(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Every Dense layer of a flat flax MLP tree under its own name."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf in tree.items():
+        _dense(sd, prefix + name, leaf)
+    return sd
+
+
+def rl_module_params_from_jax(tree: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """State dict for ``ray_tpu_torch.rllib.rl_module.RLModule``'s net, the
+    actor-critic (``fc_i``, ``pi``, ``vf``) or the dueling Q net (``fc_i``,
+    ``adv``, ``val``), from its flax tree of numpy arrays."""
+    return _mlp(tree)
+
+
+def continuous_module_params_from_jax(tree: Mapping[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """State dict for ``ContinuousRLModule``'s net from the flax tree
+    ``{"actor": ..., "q1": ..., "q2": ...}`` of numpy arrays: names
+    ``actor.fc_0.weight``, ``q1.q.bias``, ..."""
+    sd: Dict[str, torch.Tensor] = {}
+    for part in ("actor", "q1", "q2"):
+        sd.update(_mlp(tree[part], f"{part}."))
+    return sd
+
+
+def sac_params_from_jax(q_params: Mapping[str, Any], log_alpha
+                        ) -> "tuple[Dict[str, torch.Tensor], torch.Tensor]":
+    """(state dict of ``SACLearner``'s twin Q towers ``q1_fc_i``,
+    ``q1_out``, ``q2_fc_i``, ``q2_out``, the temperature ``log_alpha`` as a
+    0-d tensor) from the flax ``q_params`` tree and ``log_alpha``."""
+    return _mlp(q_params), _t(log_alpha).reshape(())

@@ -1,0 +1,553 @@
+"""The rest of the reference's RL cases, carried over to the port on the
+CPU, and the port's own seams that need a cluster.
+
+The cases of ``tests/test_rllib_connectors.py``,
+``tests/test_rllib_continuous.py``, ``tests/test_rllib_extra_algos.py``
+(PG, A2C, ES, ARS and the ES checkpoint; MARWIL and CQL are offline RL,
+not ported yet), ``tests/test_rllib_external_env.py`` and
+``tests/test_rllib_regression.py`` run through ``ray_tpu_torch.rllib`` at
+the reference's seeds and bars, the learner on the CPU
+(``num_gpus_per_learner=0``); the reference's slow and skip marks are
+kept. Then the seams: learner actors packed two to one logical GPU, and
+env runners whose processes cannot see the card. One port cluster (4 CPUs
+and one logical GPU) serves the module.
+"""
+
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import ray_tpu_torch
+from ray_tpu_torch.rllib import PolicyClient, PPOConfig
+from ray_tpu_torch.rllib.connectors import (
+    ClipObs,
+    ConnectorPipeline,
+    MeanStdFilter,
+)
+from ray_tpu_torch.rllib.env import make_env
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The CPU learners here run tiny MLPs in this process: a pool of
+    intra-op threads per test process only contends for a loaded host's
+    cores (a TD3 case took 4x as long under 6 busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def cluster():
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    yield
+    ray_tpu_torch.shutdown()
+
+
+def _cpu(config):
+    return config.learners(num_gpus_per_learner=0)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_rllib_connectors.py
+# ---------------------------------------------------------------------------
+
+def test_meanstd_filter_normalizes():
+    f = MeanStdFilter((3,))
+    rng = np.random.default_rng(0)
+    xs = rng.normal(5.0, 2.0, size=(500, 3))
+    for x in xs:
+        f(x, update=True)
+    out = np.stack([f(x, update=False) for x in xs])
+    assert abs(out.mean()) < 0.05
+    assert abs(out.std() - 1.0) < 0.05
+
+
+def test_meanstd_merge_matches_combined():
+    rng = np.random.default_rng(1)
+    a, b = MeanStdFilter((2,)), MeanStdFilter((2,))
+    xa = rng.normal(0, 1, (300, 2))
+    xb = rng.normal(10, 3, (200, 2))
+    for x in xa:
+        a(x)
+    for x in xb:
+        b(x)
+    merged = MeanStdFilter.merge_states([a.get_state(), b.get_state()])
+    both = np.concatenate([xa, xb])
+    np.testing.assert_allclose(merged["mean"], both.mean(0), rtol=1e-10)
+    var = merged["m2"] / (merged["count"] - 1)
+    np.testing.assert_allclose(var, both.var(0, ddof=1), rtol=1e-8)
+
+
+def test_pipeline_state_roundtrip():
+    p = ConnectorPipeline([MeanStdFilter((2,)), ClipObs(-5, 5)])
+    for x in np.random.default_rng(2).normal(0, 100, (50, 2)):
+        p(x)
+    out = p(np.array([1e6, -1e6]), update=False)
+    assert out.max() <= 5 and out.min() >= -5
+    state = p.get_state()
+    q = ConnectorPipeline([MeanStdFilter((2,)), ClipObs(-5, 5)])
+    q.set_state(state)
+    x = np.array([3.0, 4.0])
+    np.testing.assert_allclose(p(x, update=False), q(x, update=False))
+
+
+def test_ppo_with_filter_learns_and_syncs(cluster):
+    algo = _cpu(
+        PPOConfig()
+        .environment("CartPole-native")
+        .env_runners(num_env_runners=2, rollout_fragment_length=256,
+                     observation_filter="MeanStdFilter")
+        .training(lr=5e-3, num_epochs=6, minibatch_size=128)
+        .debugging(seed=0)
+    ).build()
+    best = 0.0
+    for _ in range(25):
+        result = algo.train()
+        best = max(best, result.get("episode_return_mean", 0.0))
+        if best >= 120:
+            break
+    states = ray_tpu_torch.get(
+        [r.get_connector_state.remote() for r in algo.runners], timeout=60
+    )
+    counts = [s[0]["count"] for s in states]
+    assert counts[0] == counts[1] and counts[0] > 500
+    ckpt = algo.save_checkpoint()
+    assert ckpt["connectors"] is not None
+    algo.stop()
+    assert best >= 100, f"filtered PPO failed to learn (best={best})"
+
+
+@pytest.mark.slow
+def test_eval_workers_run_on_interval(cluster):
+    algo = _cpu(
+        PPOConfig()
+        .environment("CartPole-native")
+        .env_runners(num_env_runners=1, rollout_fragment_length=128)
+        .evaluation(evaluation_interval=2, evaluation_num_env_runners=2,
+                    evaluation_duration=2)
+        .training(num_epochs=2, minibatch_size=64)
+        .debugging(seed=0)
+    ).build()
+    r1 = algo.train()
+    assert "evaluation" not in r1
+    r2 = algo.train()
+    assert "evaluation" in r2
+    ev = r2["evaluation"]
+    assert ev["num_episodes"] == 4
+    assert np.isfinite(ev["episode_return_mean"])
+    assert len(algo.eval_runners) == 2
+    algo.stop()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_rllib_continuous.py
+# ---------------------------------------------------------------------------
+
+def _train_continuous(config_cls, iters, **training):
+    cfg = _cpu(
+        config_cls()
+        .environment("Reacher1D-native")
+        .env_runners(num_env_runners=1, rollout_fragment_length=240)
+        .training(**training)
+        .debugging(seed=1)
+    )
+    algo = cfg.build()
+    returns = []
+    for _ in range(iters):
+        last = algo.train()
+        if "episode_return_mean" in last:
+            returns.append(last["episode_return_mean"])
+    score = algo.evaluate()["evaluation"]["episode_return_mean"]
+    ckpt = algo.save_checkpoint()
+    return score, returns, ckpt, algo
+
+
+def test_td3_learns_reacher(cluster):
+    from ray_tpu_torch.rllib import TD3Config
+
+    score, returns, ckpt, algo = _train_continuous(
+        TD3Config, iters=8, warmup_steps=300,
+        num_steps_sampled_before_learning=300, num_epochs=30,
+    )
+    try:
+        # Random policy averages ~ -20 per 60-step episode; a trained actor
+        # that homes in on the target stays above -8.
+        assert score > -8.0, (score, returns)
+        algo.load_checkpoint(ckpt)
+        a = algo.compute_single_action(np.array([0.5, -0.5], np.float32))
+        assert a.shape == (1,) and -1.0 <= float(a[0]) <= 1.0
+        a = algo.compute_single_action(np.array([0.5, -0.5], np.float32),
+                                       explore=True)
+        assert a.shape == (1,) and -1.0 <= float(a[0]) <= 1.0
+    finally:
+        algo.cleanup()
+
+
+def test_ddpg_runs_and_improves(cluster):
+    from ray_tpu_torch.rllib import DDPGConfig
+
+    score, returns, _, algo = _train_continuous(
+        DDPGConfig, iters=6, warmup_steps=300,
+        num_steps_sampled_before_learning=300, num_epochs=25,
+    )
+    algo.cleanup()
+    assert score > -12.0, (score, returns)
+
+
+def test_td3_rejects_discrete_env(cluster):
+    from ray_tpu_torch.rllib import TD3Config
+
+    cfg = _cpu(TD3Config().environment("CartPole-native"))
+    with pytest.raises(ValueError, match="continuous"):
+        cfg.build().train()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_rllib_extra_algos.py (PG, A2C, ES, ARS)
+# ---------------------------------------------------------------------------
+
+_stochastic_learning = pytest.mark.skipif(
+    os.environ.get("RAY_TPU_TORCH_RUN_STOCHASTIC_LEARNING") != "1",
+    reason="seed-sensitive learning threshold (flaky at CPU-CI budgets, as "
+    "in the reference); set RAY_TPU_TORCH_RUN_STOCHASTIC_LEARNING=1 to run",
+)
+
+
+def _train_until(algo, key, threshold, iters):
+    best = -np.inf
+    for _ in range(iters):
+        m = algo.train()
+        best = max(best, m.get(key, -np.inf))
+        if best >= threshold:
+            break
+    return best
+
+
+@pytest.mark.slow
+def test_pg_learns_cartpole(cluster):
+    from ray_tpu_torch.rllib import PGConfig
+
+    algo = _cpu(
+        PGConfig()
+        .environment("CartPole-native")
+        .env_runners(num_env_runners=2, rollout_fragment_length=256)
+        .training(lr=0.01)
+    ).build()
+    best = _train_until(algo, "episode_return_mean", 60.0, 25)
+    algo.stop()
+    assert best >= 60.0, best
+
+
+@pytest.mark.slow
+def test_a2c_learns_cartpole(cluster):
+    from ray_tpu_torch.rllib import A2CConfig
+
+    algo = _cpu(
+        A2CConfig()
+        .environment("CartPole-native")
+        .env_runners(num_env_runners=2, rollout_fragment_length=256)
+        .training(lr=0.01)
+    ).build()
+    best = _train_until(algo, "episode_return_mean", 80.0, 30)
+    algo.stop()
+    assert best >= 80.0, best
+
+
+@_stochastic_learning
+def test_es_improves_cartpole(cluster):
+    from ray_tpu_torch.rllib import ESConfig
+
+    cfg = _cpu(ESConfig().environment("CartPole-native"))
+    cfg.population = 16
+    cfg.num_env_runners = 2
+    cfg.model = {"hiddens": (16,)}
+    algo = cfg.build()
+    first = algo.train()["episode_return_mean"]
+    best = _train_until(algo, "episode_return_mean", first + 30.0, 12)
+    algo.stop()
+    assert best >= first + 30.0, (first, best)
+
+
+@_stochastic_learning
+def test_ars_improves_cartpole(cluster):
+    from ray_tpu_torch.rllib import ARSConfig
+
+    cfg = _cpu(ARSConfig().environment("CartPole-native"))
+    cfg.population = 16
+    cfg.ars_top_k = 4
+    cfg.num_env_runners = 2
+    cfg.model = {"hiddens": (16,)}
+    algo = cfg.build()
+    first = algo.train()["episode_return_mean"]
+    best = _train_until(algo, "episode_return_mean", first + 30.0, 12)
+    algo.stop()
+    assert best >= first + 30.0, (first, best)
+
+
+def test_es_checkpoint_restores_theta(cluster):
+    """ES's flat theta is the search state: after load_checkpoint the next
+    training_step must perturb the RESTORED policy, not the fresh init."""
+    from ray_tpu_torch.rllib import ESConfig
+
+    def cfg():
+        c = _cpu(ESConfig().environment("CartPole-native"))
+        c.population = 8
+        c.num_env_runners = 1
+        c.model = {"hiddens": (8,)}
+        return c
+
+    a = cfg().build()
+    a.train()
+    ckpt = a.save_checkpoint()
+    trained_theta = a.module.ravel()
+    a.stop()
+
+    b = cfg().build()
+    b.load_checkpoint(ckpt)
+    np.testing.assert_allclose(b._theta, trained_theta, rtol=1e-6)
+    b.train()
+    assert not np.allclose(b._theta, trained_theta)
+    b.stop()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_rllib_external_env.py
+# ---------------------------------------------------------------------------
+
+def _client_env_loop(address: str, episodes: int, out: dict):
+    client = PolicyClient(address)
+    env = make_env("CartPole-native")
+    returns = []
+    for _ in range(episodes):
+        eid = client.start_episode()
+        obs, _ = env.reset()
+        total, done, trunc, steps = 0.0, False, False, 0
+        while not (done or trunc) and steps < 200:
+            a = client.get_action(eid, obs)
+            obs, r, done, trunc, _ = env.step(a)
+            client.log_returns(eid, r)
+            total += r
+            steps += 1
+        client.end_episode(eid, obs)
+        returns.append(total)
+    out["returns"] = returns
+
+
+@pytest.mark.slow
+def test_policy_server_end_to_end(cluster):
+    from ray_tpu_torch.rllib import DQNConfig
+
+    algo = _cpu(
+        DQNConfig()
+        .environment("CartPole-native")
+        .env_runners(num_env_runners=1, rollout_fragment_length=64,
+                     policy_server_port=0)
+        .training(minibatch_size=32,
+                  num_steps_sampled_before_learning=64)
+        .debugging(seed=0)
+    ).build()
+    try:
+        host, port = ray_tpu_torch.get(algo.runners[0].address.remote(),
+                                       timeout=60)
+        out = {}
+        t = threading.Thread(
+            target=_client_env_loop,
+            args=(f"http://{host}:{port}", 30, out), daemon=True,
+        )
+        t.start()
+        learned = {}
+        saw_return = False
+        buffer_peak = 0
+        for _ in range(6):
+            learned = algo.train()
+            saw_return = saw_return or "episode_return_mean" in learned
+            buffer_peak = max(buffer_peak, learned.get("buffer_size", 0))
+        t.join(timeout=120)
+        assert not t.is_alive(), "client loop wedged"
+        assert out["returns"], "client never completed an episode"
+        assert buffer_peak >= 64, learned
+        assert "loss" in learned or "mean_td_error" in learned, learned
+        assert saw_return
+    finally:
+        algo.stop()
+
+
+def test_policy_client_errors_are_http_errors(cluster):
+    import urllib.error
+
+    from ray_tpu_torch.rllib import DQNConfig
+
+    algo = _cpu(
+        DQNConfig()
+        .environment("CartPole-native")
+        .env_runners(num_env_runners=1, policy_server_port=0)
+    ).build()
+    try:
+        host, port = ray_tpu_torch.get(algo.runners[0].address.remote(),
+                                       timeout=60)
+        client = PolicyClient(f"http://{host}:{port}")
+        with pytest.raises(urllib.error.HTTPError):
+            client.get_action("no-such-episode", np.zeros(4))
+        # a served episode gets an action from the runner's CPU policy
+        eid = client.start_episode()
+        assert client.get_action(eid, np.zeros(4)) in (0, 1)
+    finally:
+        algo.stop()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_rllib_regression.py
+# ---------------------------------------------------------------------------
+
+def test_all_configs_load_and_declare_thresholds():
+    """Every tuned example the port ships parses, names a known algorithm
+    config and declares a pass bar: the 11 of the ported algorithms."""
+    import ray_tpu_torch.rllib as rllib
+    from ray_tpu_torch.rllib.run_regression import (
+        TUNED_EXAMPLES_DIR,
+        load_experiments,
+    )
+
+    experiments = load_experiments(TUNED_EXAMPLES_DIR)
+    assert len(experiments) == 11, sorted(experiments)
+    for name, spec in experiments.items():
+        assert getattr(rllib, f"{spec['algorithm']}Config", None), name
+        stop = spec.get("stop") or {}
+        assert ("episode_return_mean" in stop
+                or "evaluation_return_mean" in stop), name
+        assert "training_iteration" in stop, name
+
+
+@pytest.mark.slow
+def test_run_regression_single_config_end_to_end():
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.rllib.run_regression",
+         "--select", "cartpole-ppo", "--num-gpus-per-learner", "0"],
+        capture_output=True, text=True, timeout=540,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "1/1 regression configs passed" in out.stdout, out.stdout
+
+
+def test_select_filter_and_missing():
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.rllib.run_regression",
+         "--select", "no-such-config"],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 2
+    assert "no experiments matched" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the port's seams
+# ---------------------------------------------------------------------------
+
+def _session_pids_with_hidden_card():
+    """Pids of this session's processes started with the card hidden
+    (``CUDA_VISIBLE_DEVICES`` set and empty)."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    mark = b"RAY_TPU_TORCH_SESSION_DIR=" + \
+        global_worker.node.session_dir.encode()
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue
+        if mark in env and b"CUDA_VISIBLE_DEVICES=" in env:
+            found.append(int(pid))
+    return set(found)
+
+
+def test_env_runners_start_with_the_card_hidden(cluster):
+    """Every runner process starts with ``CUDA_VISIBLE_DEVICES`` empty (the
+    raylet leaves the card visible to other workers), the learner actors at
+    ``num_gpus_per_learner=0`` too; the learner in the driver is on the
+    CPU only because it was asked."""
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    before = _session_pids_with_hidden_card()
+    algo = _cpu(
+        IMPALAConfig()
+        .environment("CartPole-native")
+        .env_runners(num_env_runners=2, rollout_fragment_length=32)
+        .learners(num_learners=2, num_cpus_per_learner=0.5)
+        .debugging(seed=0)
+    ).build()
+    try:
+        algo.train()
+        hidden = _session_pids_with_hidden_card() - before
+        assert len(hidden) == 4, hidden  # 2 runners + 2 learner actors
+        infos = ray_tpu_torch.get(
+            [w.device_info.remote() for w in algo.learner.workers])
+        assert {i["device"] for i in infos} == {"cpu"}
+        assert {i["pid"] for i in infos} <= hidden
+    finally:
+        algo.stop()
+
+
+def test_learner_group_packs_two_learners_onto_one_gpu(cluster):
+    """``num_gpus_per_learner=0.5``: two learner actors lease half of the
+    one logical GPU each, learn in lockstep over the "store" collective
+    (equal weights after an update) and give the GPU back on shutdown. The
+    factory builds the module on the CPU: the GPU here is a logical one."""
+    from ray_tpu_torch.rllib import IMPALAConfig, ImpalaLearner
+    from ray_tpu_torch.rllib.learner_group import LearnerGroup
+    from ray_tpu_torch.rllib.rl_module import RLModule
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+
+    def factory():
+        return RLModule((4,), 2, seed=0, device="cpu")
+
+    assert ray_tpu_torch.available_resources().get("GPU") == 1.0
+    group = LearnerGroup(ImpalaLearner, factory, IMPALAConfig(),
+                         num_learners=2, num_gpus_per_learner=0.5)
+    try:
+        assert ray_tpu_torch.available_resources().get("GPU", 0.0) == 0.0
+        rng = np.random.default_rng(0)
+        n = 64
+        batch = SampleBatch({
+            "obs": rng.normal(size=(n, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, n).astype(np.int32),
+            "rewards": np.ones(n, np.float32),
+            "dones": np.zeros(n, bool),
+            "truncateds": np.zeros(n, bool),
+            "logp": np.full(n, np.log(0.5), np.float32),
+            "vf_next": np.zeros(n, np.float32),
+        })
+        metrics = group.update(batch)
+        assert np.isfinite(metrics["total_loss"])
+        w0, w1 = ray_tpu_torch.get(
+            [w.get_weights.remote() for w in group.workers])
+        assert all(np.array_equal(w0[k], w1[k]) for k in w0)
+        timings = ray_tpu_torch.get(
+            [w.pop_timings.remote() for w in group.workers])
+        assert all(len(t) == 1 and t[0]["allreduce_s"] > 0 for t in timings)
+    finally:
+        group.shutdown()
+    deadline = time.time() + 30
+    while ray_tpu_torch.available_resources().get("GPU", 0.0) < 1.0:
+        assert time.time() < deadline, ray_tpu_torch.available_resources()
+        time.sleep(0.1)
+
+
+def test_group_build_raises_without_the_gpu_share(cluster):
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    cfg = IMPALAConfig().environment("CartPole-native").env_runners(
+        num_env_runners=0).learners(num_learners=2, num_gpus_per_learner=2)
+    with pytest.raises(RuntimeError, match="num_gpus_per_learner=0"):
+        cfg.build()
