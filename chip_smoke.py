@@ -152,7 +152,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    profiler's op names), its kernels' device time, and SDPA's own output
    error as a share of the bf16 limit against the same plain reference; the
    backward entries name the backend of SDPA's backward. ``device_ms`` is
-   the kernel's own time from the profiler (each of the three); ``ms``
+   the kernel's own time from the profiler (each of the three), the mean
+   of the ``device_records`` it kept of 20 launches; ``ms``
    (CUDA events around many
    calls) also holds the host's work per call, the larger part at the
    serving shape. Two launches of each backward kernel at the training
@@ -312,9 +313,55 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    rank's update and allreduce seconds, and v-trace's ms, busy ms and
    launches on the card beside its CPU ms.
 
+26. ring_attention (runs after phase 17, before 15): ring attention at
+   GPT-2's training shape, bf16, B 16, H 12, S 1024, D 64 from numpy seed
+   26, the sequence in 4 chunks of 256, its 4 ranks played in turn in one
+   process by ``tools/ring_runs.py`` through ``ops.ring_attention``'s own
+   per-rank loop (``ring_forward``, ``ring_backward``), forward and
+   backward, causal and not: launch counts zeroed just before and read
+   just after each run, and read around each block for its kind (the
+   diagonal or a whole block). Checks: out, dq, dk and dv against
+   ``flash_attention_fwd``/``_bwd`` on the whole sequence, element by
+   element at the bf16 ``TOLS`` with their rtol taken of |flash| + the
+   ring's partial magnitudes (``ring_attention.TOL_REASON``: each block
+   rounds its partial, flash its sum once), the grads both against
+   flash's backward fed the ring's output and against flash's from its
+   own output, where dq's and dk's limits gain what the forward's limit
+   carries through delta (``ring_runs.delta_terms``); the line also gives
+   each tensor's share of the plain ``TOLS``; the same in f32 against the
+   plain ring (the kernels' plain versions on the card) at the f32
+   ``TOLS``; launches 10 of each kernel causal and 16 non-causal, the
+   block readings summing to them. Prints the ring's ms by CUDA events
+   beside ``flash_attention``'s forward and backward on the whole
+   sequence.
+27. parallel_train (runs last: it forms and destroys an NCCL group in
+   this process, after every phase that times or traces a kernel): in a process group of this process alone over NCCL, on meshes
+   of size-1 axes: ``build_train_step_sp`` with ``attention="ring"`` at
+   {"data": 1, "sp": 1}, ``build_train_step_pp`` at {"data": 1,
+   "pipeline": 1} with 4 microbatches and ``shard_train_state_tp`` at
+   {"data": 1, "model": 1} (its row products through the row path, which
+   over a group of one is the plain product), each 5 steps of phase 8's
+   configuration, seed-0 weights and batch; ``shard_train_state_ep`` at
+   {"data": 1, "ep": 1}, 5 steps of phase 17's; Llama-2-7B through
+   ``shard_params_tp``/``apply_tp_plan`` and ``generate`` (its caches
+   split by ``shard_kv_caches_tp``) at {"model": 1} on phase 10's weights
+   and prompts, its prefill and decode steps then run again on the tokens
+   (``llama_runs.time_steps``) with the launches read around each. Checks:
+   the backend is NCCL; every GPT-2 loss within 1e-2 of phase 8's and the
+   MoE LM's of phase 17's, step for step; Llama's tokens equal to phase
+   10's; launches per step 12 of each kernel for SP, TP and EP and 48 for
+   PP, and 1,024 ``flash_fwd`` and no backward for Llama, 32 in the
+   prefill and 992 in the decode steps. Prints each step's ms beside phase
+   8's and phase 17's.
+
 Every phase raises on a failed check; no failure is caught.
 
-The ``kernels`` line comes after phase 23: phase 15's entries, then the
+The ``kernels`` line comes after phase 27: phase 15's entries (with the
+ring's diagonal and whole blocks at B*H 192, S 256 with phase 26's
+launches by block kind, and the pipelined step's microbatch at B*H 48, S
+1024, each timed there, with phase 27's launches), phase 27's SP, TP, EP
+and Llama TP paths (which carry the times of the shapes they run at),
+then the
 ViT-in-a-trial path's rows (phase 15's times at ViT-B/16's shape with the
 launches the trials' workers counted) and the batch-prediction path's
 ``flash_fwd`` row (the same times, with the launches the predictor's
@@ -1178,7 +1225,8 @@ def phase_llama_serve(name, cfg, seed):
         raise AssertionError(f"llama_serve {name}: " + "; ".join(problems))
     return {"prefill_launches": steps[0]["prefill_launches"]["flash_fwd"],
             "decode_launches": steps[0]["decode_launches"]["flash_fwd"],
-            "prefill": prefill_ms[1], "decode_step": decode_ms[1]}
+            "prefill": prefill_ms[1], "decode_step": decode_ms[1],
+            "tokens": tokens.cpu()}
 
 
 def phase_llama_train():
@@ -1438,7 +1486,7 @@ def phase_moe_train():
     problems += [f"f32 {p}" for p in f32_problems]
     if problems:
         raise AssertionError("moe_train: " + "; ".join(problems))
-    return run["launches"], median
+    return run["launches"], median, run["losses"]
 
 
 # the host ops whose kernels are the MoE dispatch and combine (index_copy,
@@ -2998,6 +3046,263 @@ def phase_rllib_impala_group(smi):
         raise AssertionError("rllib_impala_group: " + "; ".join(problems))
 
 
+# phase 26: ring attention's blocks at GPT-2's training shape, bf16, the
+# sequence in 4 chunks of 256 (numpy seed 26)
+RING = {"b": 16, "h": 12, "s": 1024, "d": 64, "n": 4, "seed": 26}
+
+
+def _ring_held(got, want, scales, dtype, extra=(None,) * 4):
+    """Each of (out, dq, dk, dv) against ``want`` element by element at
+    the ``TOLS`` of ``dtype``, the rtol term taken of |want| + the ring's
+    partial magnitudes ``scales`` (None: of |want| alone), plus ``extra``'s
+    term where it has one: {name: (ok, max abs error, largest share of the
+    limit)}."""
+    atol, rtol = TOLS[dtype]
+    held = {}
+    for i, name in enumerate(("out", "dq", "dk", "dv")):
+        g, w = got[i].float(), want[i].float()
+        size = w.abs() if scales is None else w.abs() + scales[i]
+        limit = atol + rtol * size
+        if extra[i] is not None:
+            limit = limit + extra[i]
+        err = (g - w).abs()
+        share = float((err / limit).max())
+        held[name] = (share <= 1.0, float(err.max()), share)
+    return held
+
+
+def phase_ring_attention():
+    """The ring's ranks played in one process (``tools/ring_runs.py``
+    through ``ops.ring_attention``'s own per-rank loop), forward and
+    backward, causal and not: out, dq, dk and dv against whole-sequence
+    flash through the kernels (bf16, the ring's stated limit: the grads
+    against flash's backward fed the ring's out, and against flash's own
+    with the limit's delta terms), the same in f32 against the plain ring
+    at f32 ``TOLS``, and the launches of the bf16 run (10 of each kernel
+    causal, 16 not), each block's read around it. Returns those readings
+    by block kind for the ``kernels`` line."""
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops.ring_attention import TOL_REASON as RING_REASON
+    from ray_tpu_torch.tools import ring_runs, timing
+
+    bh, s, d, n = RING["b"] * RING["h"], RING["s"], RING["d"], RING["n"]
+    rng = np.random.default_rng(RING["seed"])
+    f32 = [torch.from_numpy(rng.standard_normal((bh, s, d),
+                                                dtype=np.float32)).cuda()
+           for _ in range(4)]
+    q, k, v, do = (t.to(torch.bfloat16) for t in f32)
+    atol, rtol = TOLS[torch.bfloat16]
+    fields, problems = {}, []
+    by_kind = {kind: dict.fromkeys(KERNELS, 0) for kind in ("diag", "full")}
+    for causal in (True, False):
+        mode = "causal" if causal else "non_causal"
+        torch.cuda.synchronize()
+        _zero_launches()
+        got, kinds = ring_runs.ring_fwd_bwd(q, k, v, do, n, causal,
+                                            read=_read_launches)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        for kind, counted in kinds.items():
+            for name in KERNELS:
+                by_kind[kind][name] += counted[name]
+        scales = ring_runs.ring_magnitudes(q, k, v, do, n, causal)
+        ref, lse = attn.flash_attention_fwd(q, k, v, causal=causal)
+        # the backward at the ring's own delta: flash's fed the ring's out
+        want = (ref, *attn.flash_attention_bwd(q, k, v, got[0], lse, do,
+                                               causal=causal))
+        own = (ref, *attn.flash_attention_bwd(q, k, v, ref, lse, do,
+                                              causal=causal))
+        held = _ring_held(got, want, scales, torch.bfloat16)
+        plain_tols = _ring_held(got, want, None, torch.bfloat16)
+        # against flash's own backward: the limit gains what the forward's
+        # rounding carries into dq and dk through delta
+        out_limit = atol + rtol * (ref.float().abs() + scales[0])
+        terms = ring_runs.delta_terms(q, k, do, out_limit, causal)
+        end_to_end = _ring_held(got, own, scales, torch.bfloat16,
+                                extra=(None, *terms, None))
+        del got, scales, want, own, ref, lse, out_limit, terms
+        got32 = ring_runs.ring_fwd_bwd(*f32, n, causal)
+        plain32 = ring_runs.ring_fwd_bwd(*f32, n, causal, plain=True)
+        held32 = _ring_held(got32, plain32, None, torch.float32)
+        del got32, plain32
+        ring_ms = timing.time_ms(
+            lambda: ring_runs.ring_fwd_bwd(q, k, v, do, n, causal), 10)
+        q4, k4, v4 = (t.view(RING["b"], RING["h"], s, d).detach()
+                      .requires_grad_() for t in (q, k, v))
+        do4 = do.view(RING["b"], RING["h"], s, d)
+        flash_ms = timing.time_ms(lambda: torch.autograd.grad(
+            attn.flash_attention(q4, k4, v4, causal=causal), (q4, k4, v4),
+            do4), 10)
+        want_launches = dict.fromkeys(KERNELS,
+                                      ring_runs.live_blocks(n, causal))
+        summed = {name: sum(c[name] for c in kinds.values())
+                  for name in KERNELS}
+        result = lambda h: {key: {"max_abs_err": e, "share_of_limit": sh}
+                            for key, (_, e, sh) in h.items()}
+        fields[mode] = {
+            "launches": launches, "want_launches": want_launches,
+            "launches_by_block_kind": kinds,
+            "bf16_vs_flash": result(held),
+            "bf16_share_of_plain_tols": {key: sh for key, (_, _, sh)
+                                         in plain_tols.items()},
+            "bf16_vs_flash_own_delta": result(end_to_end),
+            "f32_vs_plain_ring": result(held32),
+            "ring_fwd_bwd_ms": ring_ms, "flash_attention_fwd_bwd_ms":
+                flash_ms}
+        if launches != want_launches or summed != launches:
+            problems.append(f"{mode} launches {launches} (by block kind "
+                            f"{kinds}), want {want_launches}")
+        problems += [f"{mode} bf16 {key} off by {e} ({sh} of the limit)"
+                     for key, (ok, e, sh) in held.items() if not ok]
+        problems += [f"{mode} bf16 {key} off flash's own backward by {e} "
+                     f"({sh} of the limit)"
+                     for key, (ok, e, sh) in end_to_end.items() if not ok]
+        problems += [f"{mode} f32 {key} off the plain ring by {e}"
+                     for key, (ok, e, _) in held32.items() if not ok]
+    emit("ring_attention", shape={"bh": bh, "s": s, "d": d, "chunks": n,
+                                  "chunk": s // n, "dtype": "bfloat16"},
+         **fields, tolerance={
+             "bf16": {"atol": atol, "rtol": rtol,
+                      "of": "|flash| + the partials' magnitudes",
+                      "reason": RING_REASON,
+                      "gated": "bf16_vs_flash (flash's backward fed the "
+                               "ring's out) and bf16_vs_flash_own_delta "
+                               "(flash's own, dq and dk with the delta "
+                               "terms)"},
+             "f32": _tol_fields(torch.float32)},
+         note="ms by CUDA events: the ring composed in one process (all "
+              "4 positions in turn) against flash_attention's forward and "
+              "backward over the whole sequence")
+    if problems:
+        raise AssertionError("ring_attention: " + "; ".join(problems))
+    return by_kind
+
+
+# phase 27: the parallel steps at a world of one over NCCL, on phase 8's
+# configuration, weights and batch (GPT-2), phase 17's (the MoE LM) and
+# phase 10's (Llama-2-7B)
+PARALLEL = {"steps": 5, "microbatches": 4}
+
+
+def phase_parallel_train(bf16_losses, bf16_step_ms, moe_train,
+                         llama_tokens):
+    """``build_train_step_sp`` (ring attention), ``build_train_step_pp``
+    (4 microbatches) and ``shard_train_state_tp`` on GPT-2-124M, 5 steps
+    each; ``shard_train_state_ep`` on ``MoELMConfig()``, 5 steps; and
+    Llama-2-7B through ``shard_params_tp``/``apply_tp_plan`` and
+    ``generate`` (``shard_kv_caches_tp``): each on a mesh of size-1 axes
+    in a process group of this process alone over NCCL. Checks: every loss
+    within 1e-2 of phase 8's (GPT-2) or phase 17's (the MoE LM) at that
+    step, Llama's tokens equal to phase 10's, and each step's launches (12
+    of each kernel for SP, TP and EP, 48 for PP; 1,024 ``flash_fwd`` and no
+    backward for Llama, 32 of them in the prefill and 992 in the decode
+    steps, each read around its part as ``llama_runs.time_steps`` runs them
+    again on the tokens)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2, llama, moe_lm
+    from ray_tpu_torch.tools import llama_runs, parallel_runs, train_runs
+
+    steps, M = PARALLEL["steps"], PARALLEL["microbatches"]
+    counts = (_zero_launches, _read_launches)
+    layers = GPT2_124M["n_layer"]
+    per_step = {"sp": layers, "tp": layers, "pp": layers * M, "ep": layers}
+    runs = {}
+    with parallel_runs.world_of_one("nccl"):
+        backend = dist.get_backend()
+        cfg = train_runs.bf16_config()
+        batch = gpt2.synthetic_batch(1, train_runs.BATCH, train_runs.SEQ,
+                                     cfg.vocab_size)
+        for kind in ("sp", "pp", "tp"):
+            runs[kind] = parallel_runs.gpt2_steps(kind, cfg, batch, steps,
+                                                  "cuda", microbatches=M,
+                                                  counts=counts)
+            gc.collect()
+            torch.cuda.empty_cache()
+        del batch
+        mcfg = moe_lm.MoELMConfig()
+        mbatch = gpt2.synthetic_batch(60, MOE["batch"], MOE["seq"],
+                                      mcfg.vocab_size)
+        runs["ep"] = parallel_runs.moe_ep_steps(mcfg, mbatch, steps, "cuda",
+                                                MOE["lr"], counts)
+        del mbatch
+        gc.collect()
+        torch.cuda.empty_cache()
+        B, T, new = (LLAMA_SERVE[k] for k in ("batch", "prompt",
+                                               "new_tokens"))
+        lcfg = llama.LlamaConfig.llama2_7b()
+        model = llama.init_params(lcfg, _cuda_gen(20))  # phase 10's
+        llama.cast_for_serving(model, torch.bfloat16)
+        prompts = llama_runs.prompts(21, B, T, lcfg.vocab_size, "cuda")
+        llama.generate(model, prompts[:, :16], 2)  # cuBLAS and the library
+        served = parallel_runs.llama_tp_generate(model, prompts, new, counts)
+        tp_heads = model.h[0].attn.k_proj.weight.shape[0] // lcfg.head_dim
+        del model, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    problems = []
+    if backend != "nccl":
+        problems.append(f"backend {backend}")
+    wants = {"sp": bf16_losses, "pp": bf16_losses, "tp": bf16_losses,
+             "ep": moe_train[2]}
+    fields = {}
+    for kind, run in runs.items():
+        diffs = [abs(a - b) for a, b in zip(run["losses"], wants[kind])]
+        want_launches = dict.fromkeys(KERNELS, per_step[kind])
+        median = statistics.median(run["step_ms"][1:])
+        fields[kind] = {"losses": run["losses"], "max_loss_diff": max(diffs),
+                        "step_ms": run["step_ms"],
+                        "step_ms_median_after_first": median,
+                        "launches_per_step": run["launches"]}
+        if kind == "ep":
+            fields[kind].update(lm=run["lm"], aux=run["aux"])
+        if not (all(math.isfinite(x) for x in run["losses"])
+                and max(diffs) <= 1e-2):
+            problems.append(f"{kind} losses {run['losses']} vs "
+                            f"{wants[kind][:steps]}")
+        if any(x != want_launches for x in run["launches"]):
+            problems.append(f"{kind} launches {run['launches']}, want "
+                            f"{want_launches} a step")
+    want_llama = {"flash_fwd": lcfg.n_layer * new, "flash_bwd_dq": 0,
+                  "flash_bwd_dkv": 0}
+    want_prefill = dict(want_llama, flash_fwd=lcfg.n_layer)
+    want_decode = dict(want_llama, flash_fwd=lcfg.n_layer * (new - 1))
+    tokens_equal = torch.equal(served["tokens"].cpu(), llama_tokens)
+    fields["llama_tp"] = {"generate_s": served["generate_s"],
+                          "tokens_per_s": B * new / served["generate_s"],
+                          "launches": served["launches"],
+                          "prefill_launches": served["prefill_launches"],
+                          "decode_launches": served["decode_launches"],
+                          "kv_heads_per_rank": tp_heads,
+                          "tokens_sha256": _digest(served["tokens"]),
+                          "tokens_equal_phase_10": tokens_equal}
+    if not tokens_equal:
+        problems.append("Llama's TP tokens differ from phase 10's")
+    for part, want in (("launches", want_llama),
+                       ("prefill_launches", want_prefill),
+                       ("decode_launches", want_decode)):
+        if served[part] != want:
+            problems.append(f"llama_tp {part} {served[part]}, want {want}")
+    emit("parallel_train", backend=backend,
+         meshes=parallel_runs.MESHES, steps=steps, microbatches=M,
+         **fields, phase_8_step_ms=bf16_step_ms,
+         phase_17_step_ms_median=moe_train[1],
+         tolerance={"losses": "1e-2 of phase 8's (GPT-2) or 17's (MoE) at "
+                    "each step", "llama": "tokens equal to phase 10's"},
+         note="step ms on the host clock to a sync, each step alone; "
+              "phase 8's is its mean over 10 timed steps")
+    if problems:
+        raise AssertionError("parallel_train: " + "; ".join(problems))
+    return {kind: {name: sum(x[name] for x in run["launches"])
+                   for name in KERNELS} for kind, run in runs.items()} | {
+        "llama_tp_prefill": served["prefill_launches"],
+        "llama_tp_decode": served["decode_launches"],
+        "pp_step_ms": fields["pp"]["step_ms_median_after_first"]}
+
+
 def _bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the bf16 tensor-core peak."""
@@ -3089,8 +3394,7 @@ def _fwd_shape_entry(launches, path, bh, sq, sk, d, seed, k_len=None):
         q4, k4, v4, is_causal=sq == live)
     library_ms = timing.time_ms(sdpa, 100)
     sdpa_error = _sdpa_error(sdpa(), ref)
-    profile = lambda: {"device_ms": timing.device_ms(fwd),
-                       **_sdpa_profile(sdpa)}
+    profile = lambda: {**_launch_profile(fwd), **_sdpa_profile(sdpa)}
     # q and the live rows of k and v read once, out (bf16) and lse (f32)
     # written once; QK^T and PV over the live pairs
     nbytes = (2 * sq + 2 * live) * bh * d * 2 + bh * sq * 4
@@ -3108,14 +3412,26 @@ def _fwd_shape_entry(launches, path, bh, sq, sk, d, seed, k_len=None):
                          "d": d, "causal": True, "dtype": "bfloat16"}), profile
 
 
+def _launch_profile(fn, iters=20):
+    """A wrapper's one kernel a call under the profiler: ``device_ms``, the
+    mean of the records it kept, and ``device_records``, their number of
+    ``iters`` launches (the profiler has kept fewer in some runs, which
+    made a sum over the calls read low)."""
+    from ray_tpu_torch.tools import timing
+
+    ms, records = timing.launch_ms(fn, iters)
+    return {"device_ms": ms, "device_records": records,
+            "device_launches": iters}
+
+
 def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
                          seed, causal=True):
     """flash_fwd, flash_bwd_dq and flash_bwd_dkv at the shape a training
     path gives them (batch b x h heads, seq s, head dim d, causal or not,
     bf16):
-    (entries, attention's share of the step of ``n_layer`` layers, a
-    function giving each entry's profiler fields by name, to run after
-    every CUDA-event timing)."""
+    (entries, attention's share of the step of ``n_layer`` launches of each
+    (None without a ``step_ms``), a function giving each entry's profiler
+    fields by name, to run after every CUDA-event timing)."""
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.tools import timing
 
@@ -3187,15 +3503,15 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
         bwd = _sdpa_profile(sdpa_fwd_bwd, "_backward")
         if None not in (fwd["library_device_ms"], bwd["library_device_ms"]):
             bwd["library_device_ms"] -= fwd["library_device_ms"]
-        flash_ms = timing.device_ms(lambda: attn.flash_attention_fwd(
+        flash = _launch_profile(lambda: attn.flash_attention_fwd(
             q, k, v, causal=causal))
-        dq_ms = timing.device_ms(lambda: attn._flash_bwd_dq_kernel(
+        dq = _launch_profile(lambda: attn._flash_bwd_dq_kernel(
             q, k, v, do, lse, delta, **kw))
-        dkv_ms = timing.device_ms(lambda: attn._flash_bwd_dkv_kernel(
+        dkv = _launch_profile(lambda: attn._flash_bwd_dkv_kernel(
             q, k, v, do, lse, delta, **kw))
-        return {"flash_fwd": {"device_ms": flash_ms, **fwd},
-                "flash_bwd_dq": {"device_ms": dq_ms, **bwd},
-                "flash_bwd_dkv": {"device_ms": dkv_ms, **bwd}}
+        return {"flash_fwd": {**flash, **fwd},
+                "flash_bwd_dq": {**dq, **bwd},
+                "flash_bwd_dkv": {**dkv, **bwd}}
 
     live = _live_pairs(bh, s, s, causal)
     stats = bh * s * 4   # one f32 per row: lse or delta
@@ -3227,12 +3543,15 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
                       library=library[name][1], shape=shape,
                       **extra.get(name, {}))
                for name in KERNELS]
-    attn_ms = (sum(ms.values()) + delta_ms) * n_layer
-    share = {"path": path, "attention_ms_per_step": attn_ms,
-             "step_ms": step_ms, "share": attn_ms / step_ms,
-             "delta_ms": delta_ms, "bwd_ms_vs_sdpa_bwd": bwd_vs_sdpa,
-             "note": f"estimate: kernel ms at this shape x {n_layer} layers "
-                     "/ step ms, not a trace"}
+    share = None
+    if n_layer is not None:  # a path with a step (the ring's blocks have none)
+        attn_ms = (sum(ms.values()) + delta_ms) * n_layer
+        share = {"path": path, "attention_ms_per_step": attn_ms,
+                 "step_ms": step_ms,
+                 "share": None if step_ms is None else attn_ms / step_ms,
+                 "delta_ms": delta_ms, "bwd_ms_vs_sdpa_bwd": bwd_vs_sdpa,
+                 "note": f"estimate: kernel ms at this shape x {n_layer} "
+                         "launches / step ms, not a trace"}
     bad = [name for name, hs in held.items() if not all(h[0] for h in hs)]
     if bad:
         raise AssertionError(f"at the {path} shape {bad} disagree with "
@@ -3244,13 +3563,20 @@ def _train_shape_entries(launches, step_ms, path, b, h, s, d, n_layer,
 
 
 def phase_kernels(serve_launches, train_launches, step_ms, llama_serve,
-                  llama_train, vit_train, moe_train):
+                  llama_train, vit_train, moe_train, ring):
     """Every kernel at the shapes of every path: GPT-2's serving and
     training shapes, Llama-2-7B's prefill and decode shapes (the whole
     cache of 544 rows with the live length the path gives: 512 in the
     prefill, 543 in the last decode step) and its training shape,
     ViT-B/16's training shape (non-causal, S 197) and the MoE LM's (GPT-2's
-    training shape, with the MoE path's launches and step)."""
+    training shape, with the MoE path's launches and step); the ring's
+    blocks (B*H 192, a chunk of 256: the diagonal causal, the rest whole,
+    phase 26's launches by block kind) and the pipelined step's microbatch
+    (B*H 48, S 1024, causal), whose launches and step phase 27 gives later
+    (``_parallel_rows``). Returns (entries, the attention shares still
+    waiting for their step)."""
+    from ray_tpu_torch.tools import train_runs
+
     cache = LLAMA_SERVE["prompt"] + LLAMA_SERVE["new_tokens"]
     entries, profiles, shares = [], [], []
     for launches, path, bh, sq, sk, d, seed, k_len in (
@@ -3273,11 +3599,20 @@ def phase_kernels(serve_launches, train_launches, step_ms, llama_serve,
             (vit_train[0], vit_train[1], "vit_train", VIT["batch"], 12, 197,
              64, 12, 9, False),
             (moe_train[0], moe_train[1], "moe_train", MOE["batch"], 12,
-             MOE["seq"], 64, 12, 10, True)):
+             MOE["seq"], 64, 12, 10, True),
+            (dict.fromkeys(KERNELS), None, "pp_train",
+             train_runs.BATCH // PARALLEL["microbatches"], 12,
+             train_runs.SEQ, 64, 12 * PARALLEL["microbatches"], 11, True),
+            (ring["diag"], None, "ring_diag_block", RING["b"],
+             RING["h"], RING["s"] // RING["n"], RING["d"], None, 12, True),
+            (ring["full"], None, "ring_full_block", RING["b"],
+             RING["h"], RING["s"] // RING["n"], RING["d"], None, 13,
+             False)):
         group, share, profile = _train_shape_entries(
             launches, ms, path, b, h, s, d, n_layer, seed, causal)
         entries += group
-        shares.append(share)
+        if share is not None:
+            shares.append(share)
 
         def update(group=group, profile=profile):
             fields = profile()
@@ -3290,8 +3625,41 @@ def phase_kernels(serve_launches, train_launches, step_ms, llama_serve,
     for update in profiles:
         update()
     for share in shares:
+        if share["step_ms"] is not None:
+            emit("attention_share", **share)
+    return entries, [share for share in shares if share["step_ms"] is None]
+
+
+def _parallel_rows(entries, pending, parallel):
+    """Phase 27's readings into the ``kernels`` line: the pipelined step's
+    launches into its rows (and its step into its attention share), and
+    the rows of the SP, TP, EP and Llama TP paths, which at world size one
+    launch at the shapes of the GPT-2 training, MoE LM training and Llama
+    serving rows and carry their times, with the launches phase 27 read
+    around each path (Llama's prefill and decode apart)."""
+    for entry in entries:
+        if entry["path"] == "pp_train":
+            entry["launches"] = parallel["pp"][entry["name"]]
+    for share in pending:  # the pipelined step's
+        share.update(step_ms=parallel["pp_step_ms"],
+                     share=share["attention_ms_per_step"]
+                     / parallel["pp_step_ms"])
         emit("attention_share", **share)
-    return entries
+    source = {"sp_train": ("train", "sp"), "tp_train": ("train", "tp"),
+              "ep_train": ("moe_train", "ep"),
+              "llama_tp_prefill": ("llama_prefill", "llama_tp_prefill"),
+              "llama_tp_decode": ("llama_decode", "llama_tp_decode")}
+    rows = []
+    for path, (origin, kind) in source.items():
+        for entry in entries:
+            if entry["path"] != origin:
+                continue
+            launches = parallel[kind][entry["name"]]
+            rows.append(dict(entry, path=path, launches=launches,
+                             note=f"phase 27's launches; times are phase "
+                                  f"15's at the {origin} shape, which this "
+                                  "path runs at world size one"))
+    return rows
 
 
 def main() -> int:
@@ -3332,8 +3700,10 @@ def main() -> int:
     vit_train = timed("vit_train", phase_vit)
     resnet_train = timed("resnet_train", phase_resnet)
     moe_train = timed("moe_train", phase_moe_train)
-    kernels = timed("kernels", phase_kernels, serve_launches, train_launches,
-                    step_ms, llama_serve, llama_train, vit_train, moe_train)
+    ring = timed("ring_attention", phase_ring_attention)
+    kernels, pending = timed("kernels", phase_kernels, serve_launches,
+                             train_launches, step_ms, llama_serve,
+                             llama_train, vit_train, moe_train, ring)
     timed("llama_trace", phase_llama_trace, llama_serve)
     timed("moe_trace", phase_moe_trace, moe_train[1])
     timed("serve_run", phase_serve_run, smi, bf16_streams)
@@ -3343,6 +3713,11 @@ def main() -> int:
     timed("data_resnet_fit", phase_data_resnet_fit, smi, *resnet_train)
     predict_launches = timed("batch_predict_vit", phase_batch_predict_vit,
                              smi)
+    # phase 27 forms and destroys an NCCL group in this process: after
+    # every phase that times or traces a kernel
+    parallel = timed("parallel_train", phase_parallel_train, bf16_losses,
+                     step_ms, moe_train, llama_serve["tokens"])
+    kernels += _parallel_rows(kernels, pending, parallel)
     vit_entries = [e for e in kernels if e["path"] == "vit_train"]
     kernels += _tune_entries(vit_entries, tune_launches)
     kernels += _predict_entries(vit_entries, predict_launches)

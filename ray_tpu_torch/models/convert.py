@@ -9,6 +9,12 @@ side), so this module needs neither JAX nor the JAX package. Dense
 ``kernel`` is HWIO and becomes a Conv2d ``weight`` OIHW; LayerNorm and
 GroupNorm ``scale`` become ``weight``; Embed ``embedding`` becomes
 ``weight``. The MoE router and stacked expert weights keep their layout.
+
+For model parallelism: ``pipeline_params_from_jax`` bridges the reference's
+pipeline tree (``{"stages", "embed"}``, the blocks' leaves stacked on
+leading (stage, layer) axes) to ``gpt2.GPT2Pipeline``, and
+``tp_shard_state_dict`` cuts a whole state dict to one rank's part under a
+tensor-parallel plan (``gpt2.shard_params_tp``, ``llama.shard_params_tp``).
 """
 
 from __future__ import annotations
@@ -69,6 +75,53 @@ def _gpt2_blocks(tree, is_moe) -> Dict[str, torch.Tensor]:
             for leaf in ("router", "wi", "wo"):
                 sd[f"{name}.{leaf}"] = _t(blk[leaf])
     return sd
+
+
+def pipeline_params_from_jax(tree: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """State dict for ``ray_tpu_torch.models.gpt2.GPT2Pipeline`` from the
+    reference's pipeline tree of numpy arrays (``make_pipeline_train_state``'s
+    ``{"stages": ..., "embed": {"wte", "wpe", "ln_f"}}``): block j of stage
+    s is every ``stages`` leaf at index [s, j]; raises KeyError on a missing
+    leaf."""
+    embed = tree["embed"]
+    sd: Dict[str, torch.Tensor] = {
+        "embed.wte.weight": _t(embed["wte"]["embedding"]),
+        "embed.wpe.weight": _t(embed["wpe"]["embedding"]),
+    }
+    _norm(sd, "embed.ln_f", embed["ln_f"])
+    stages = tree["stages"]
+    n_stages, per = np.shape(stages["ln_1"]["scale"])[:2]
+    for s in range(n_stages):
+        for j in range(per):
+            blk = _index_tree(stages, (s, j))
+            name = f"stages.{s}.{j}"
+            for ln in ("ln_1", "ln_2"):
+                _norm(sd, f"{name}.{ln}", blk[ln])
+            for path in _DENSE:
+                _dense(sd, f"{name}." + path.replace("/", "."),
+                       _get(blk, path))
+    return sd
+
+
+def _index_tree(tree, index):
+    """Every leaf of a nested dict of arrays at ``index``."""
+    if isinstance(tree, Mapping):
+        return {k: _index_tree(v, index) for k, v in tree.items()}
+    return np.asarray(tree)[index]
+
+
+def tp_shard_state_dict(state_dict: Mapping[str, torch.Tensor],
+                        plan: Mapping[str, str], index: int, n: int
+                        ) -> Dict[str, torch.Tensor]:
+    """Rank ``index`` of ``n``'s part of a whole state dict under a
+    tensor-parallel plan ({name: placement}, ``parallel.mesh_utils.
+    TP_PLACEMENTS``): what a model placed by ``parallel.apply_tp_plan``
+    holds. Raises KeyError on a name the plan lacks."""
+    from ray_tpu_torch.parallel.mesh_utils import tp_slice
+
+    return {k: tp_slice(v, plan[k], index, n)
+            for k, v in state_dict.items()}
 
 
 def llama_params_from_jax(tree: Mapping[str, Any]

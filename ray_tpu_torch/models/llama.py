@@ -31,8 +31,12 @@ the same keys, and it never reads the rows past ``k_len``. A Python-int
 reference clamps a write past the end; the port raises); a tensor index is
 not read on the host, so its caller (``generate``) keeps it in range.
 
-Tensor-parallel sharding (``shard_params_tp``, ``shard_kv_caches_tp``)
-belongs to a later slice of the port.
+Tensor parallelism: ``shard_params_tp`` gives Megatron's plan (q/k/v and
+gate/up column-parallel by heads, o/down row-parallel with one all-reduce
+each), ``parallel.apply_tp_plan`` places it, and ``shard_kv_caches_tp``
+splits the decode caches over their head axis, so cached attention stays
+on each rank's heads; the decode keeps its static shapes and ``k_len``.
+``generate`` on a placed model splits its caches so itself.
 """
 
 from __future__ import annotations
@@ -203,9 +207,12 @@ class LlamaAttention(nn.Module):
         c = self.config
         B, T, _ = x.shape
         d = c.head_dim
-        q = self.q_proj(x).reshape(B, T, c.n_head, d)
-        k = self.k_proj(x).reshape(B, T, c.n_kv_head, d)
-        v = self.v_proj(x).reshape(B, T, c.n_kv_head, d)
+        # this rank's heads: all of them, or 1/n under tensor parallelism
+        heads, kv_heads = (p.weight.shape[0] // d
+                           for p in (self.q_proj, self.k_proj))
+        q = self.q_proj(x).reshape(B, T, heads, d)
+        k = self.k_proj(x).reshape(B, T, kv_heads, d)
+        v = self.v_proj(x).reshape(B, T, kv_heads, d)
         cos, sin = rope_frequencies(d, positions, c.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -216,7 +223,7 @@ class LlamaAttention(nn.Module):
             cv.index_copy_(1, slots.rows, v.to(cv.dtype))
             k, v, k_len = ck, cv, slots.k_len
         y = causal_attention(q, k, v, k_len)
-        return self.o_proj(y.reshape(B, T, c.n_head * d))
+        return self.o_proj(y.reshape(B, T, heads * d))
 
 
 class LlamaMLP(nn.Module):
@@ -410,6 +417,9 @@ def generate(model: Llama, prompt_ids: torch.Tensor, max_new_tokens: int,
     with torch.inference_mode():
         caches = init_kv_caches(model.config, B, max_len=T + max_new_tokens,
                                 device=device)
+        tp_group = model.h[0].attn.k_proj.tp_group
+        if tp_group is not None:
+            caches = shard_kv_caches_tp(caches, tp_group)
         logits, caches = _prefill(model, prompt_ids, caches)
         # the decode steps' cache row, on the device, advanced in place; the
         # caches hold T + max_new_tokens rows, so it never runs past them
@@ -435,3 +445,55 @@ def synthetic_batch(seed: int, batch_size: int, seq_len: int, vocab: int,
     """``gpt2.synthetic_batch``: random ids from numpy ``seed``, labels
     shifted by one, on ``device`` (CUDA by default)."""
     return gpt2.synthetic_batch(seed, batch_size, seq_len, vocab, device)
+
+
+def shard_params_tp(model: Llama, mesh=None, model_axis: str = "model"
+                    ) -> Dict[str, str]:
+    """Megatron-style TP for the Llama family as a per-parameter plan
+    ({name: placement}, ``parallel.mesh_utils.TP_PLACEMENTS``): q/k/v and
+    gate/up column-parallel ("col", a split of the torch weight's output
+    rows, the reference's ``P(None, "model")`` kernel), o_proj/down_proj
+    row-parallel ("row"); the embedding, the LM head and the norms
+    replicated. Place it with ``parallel.apply_tp_plan``. With a ``mesh``,
+    the heads are checked against the axis's size n: GQA needs
+    ``n_kv_head % n == 0`` (a rank's query heads then read only its own KV
+    heads), as the reference's placement of the k/v kernels would fail
+    otherwise."""
+    if mesh is not None:
+        n = mesh.size(mesh.mesh_dim_names.index(model_axis))
+        c = model.config
+        for what, size in (("n_head", c.n_head), ("n_kv_head", c.n_kv_head),
+                           ("intermediate", c.intermediate)):
+            if size % n:
+                raise ValueError(f"{what}={size} does not split over {n} "
+                                 "model shards")
+    plan = {}
+    for name, _ in model.named_parameters():
+        layer = name.split(".")[-2] if name.count(".") >= 2 else ""
+        if layer in ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"):
+            plan[name] = "col"
+        elif layer in ("o_proj", "down_proj"):
+            plan[name] = "row"
+        else:
+            plan[name] = "rep"
+    return plan
+
+
+def shard_kv_caches_tp(caches: List[KVCache], mesh,
+                       model_axis: str = "model") -> List[KVCache]:
+    """Each (B, L, KV, D) cache split over its head axis (axis 2) for
+    ``mesh``'s ``model_axis`` (or a process group): this rank's KV/n heads,
+    contiguous, so that the cached attention stays on its heads and the
+    decode's only collectives are the row-parallel all-reduces."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(model_axis) if hasattr(mesh, "get_group") \
+        else mesh
+    n, index = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
+        return caches
+    kv = caches[0][0].shape[2]
+    if kv % n:
+        raise ValueError(f"{kv} KV heads do not split over {n} model shards")
+    part = lambda t: t.narrow(2, index * (kv // n), kv // n).contiguous()
+    return [(part(k), part(v)) for k, v in caches]

@@ -1,5 +1,5 @@
 """Switch-Transformer LM in PyTorch: the port of ``ray_tpu/models/moe_lm.py``
-(forward and single-device training).
+(forward, training and expert parallelism).
 
 A GPT-2 decoder in which every ``moe_every``-th block (block i when
 ``(i + 1) % moe_every == 0``) replaces its dense MLP with a Switch top-1
@@ -21,9 +21,23 @@ one-hot einsums, with the same outputs to the bit.
 Training: ``make_train_state`` (GPT-2's AdamW: betas 0.9/0.95, weight decay
 0.1 on every parameter, the reference's ``optax.adamw``) and
 ``build_train_step`` (in place, through ``gpt2.in_place_step``); the step
-returns (model, optimizer, loss, lm, aux). Expert parallelism inside the
-model (``ep_axis``, ``shard_train_state_ep``) waits for the parallel layer;
-the ops-level EP pattern is ``moe.moe_ffn_ep`` with ``moe.ep_loss_and_grads``.
+returns (model, optimizer, loss, lm, aux).
+
+Expert parallelism, two ways, as in the reference:
+
+- ``MoELMConfig(ep_axis=...)``: the MoE blocks call ``moe.moe_ffn_ep``
+  over the EP group, routing each rank's tokens on their own (the
+  reference's ``shard_map`` formulation). ``shard_experts`` keeps a rank's
+  experts and binds the mesh's ``ep_axis`` group; training with it is the
+  caller's, with ``moe.ep_loss_and_grads``.
+- ``shard_train_state_ep`` (the reference's GSPMD path, whose math is the
+  local step's on the global batch): a rank keeps its experts, the global
+  batch is split over (data, ep) (``place_batch``; no rank holds another's
+  tokens), the MoE blocks route over all ranks' tokens as one batch
+  (``moe.moe_ffn_ep_global``: global capacity and queue slots, global aux),
+  the LM loss is the global token mean, and ``build_train_step`` sums the
+  gradients as ``moe.ep_loss_and_grads`` lays them out: the experts' over
+  the data axis, every other (replicated) parameter's over both axes.
 """
 
 from __future__ import annotations
@@ -54,16 +68,11 @@ class MoELMConfig:
     capacity_factor: float = 1.25
     aux_loss_coeff: float = 0.01
     dtype: torch.dtype = torch.bfloat16
-    # the reference's mesh axis for moe_ffn_ep inside its shard_map; the
-    # port has no mesh yet, so any value raises
+    # None: local experts (moe_ffn). A mesh axis name: the MoE blocks run
+    # moe_ffn_ep over that axis's group (bound by ``shard_experts``)
     ep_axis: Optional[str] = None
 
     def __post_init__(self):
-        if self.ep_axis is not None:
-            raise NotImplementedError(
-                "ep_axis waits for the parallel layer (ROADMAP queue 1, "
-                "\"TP, SP, PP and EP\"); the ops-level pattern is "
-                "ops.moe.moe_ffn_ep over torch.distributed groups")
         if self.n_embd % self.n_head:
             raise ValueError("n_embd must be a multiple of n_head")
 
@@ -93,7 +102,12 @@ DenseBlock = gpt2.Block
 
 class MoEBlock(nn.Module):
     """Pre-LN block: causal self-attention, then the Switch MoE FFN in f32
-    on the LayerNormed stream. Returns (x, aux)."""
+    on the LayerNormed stream. Returns (x, aux). ``ep_group`` (with
+    ``route_group`` for global routing) is set by ``shard_experts`` or
+    ``shard_train_state_ep``."""
+
+    ep_group = None
+    route_group = None
 
     def __init__(self, config: MoELMConfig):
         super().__init__()
@@ -113,9 +127,22 @@ class MoEBlock(nn.Module):
         h = self.ln_2(x)
         B, T, D = h.shape
         params = {"router": self.router, "wi": self.wi, "wo": self.wo}
+        tokens = h.reshape(B * T, D).float()
         # looked up at call time, so that a caller can swap the dispatch
-        out, aux = moe.moe_ffn(params, h.reshape(B * T, D).float(),
-                               capacity_factor=c.capacity_factor)
+        if self.route_group is not None:
+            out, aux = moe.moe_ffn_ep_global(params, tokens, self.ep_group,
+                                             self.route_group,
+                                             c.capacity_factor)
+        elif c.ep_axis is not None:
+            if self.ep_group is None:
+                raise ValueError(f"ep_axis={c.ep_axis!r} needs the model's "
+                                 "experts sharded over a mesh: "
+                                 "shard_experts")
+            out, aux = moe.moe_ffn_ep(params, tokens, self.ep_group,
+                                      c.capacity_factor)
+        else:
+            out, aux = moe.moe_ffn(params, tokens,
+                                   capacity_factor=c.capacity_factor)
         return x + out.reshape(B, T, D).to(c.dtype), aux
 
 
@@ -186,7 +213,18 @@ def loss_fn(model: MoELM, batch: Dict[str, torch.Tensor], aux_coeff: float
     on ``batch`` (``input_ids``, ``labels``, optional ``mask``) and the mean
     of the MoE blocks' aux losses (0.0 without an MoE block), f32."""
     logits, aux_terms = model(batch["input_ids"])
-    lm = gpt2.fused_xent(logits, batch["labels"], batch.get("mask"))
+    route = _route_group(model)
+    if route is None:
+        lm = gpt2.fused_xent(logits, batch["labels"], batch.get("mask"))
+    else:  # the global batch's token mean (shard_train_state_ep)
+        from ray_tpu_torch.parallel import collectives
+
+        ll = gpt2.token_log_likelihood(logits, batch["labels"])
+        mask = batch.get("mask")
+        mask = torch.ones_like(ll) if mask is None else mask.float()
+        numer = collectives.psum_replicated(-(ll * mask).sum(), route)
+        denom = collectives.psum_replicated(mask.sum(), route)
+        lm = numer / torch.clamp(denom, min=1.0)
     aux = (sum(aux_terms) / len(aux_terms) if aux_terms
            else lm.new_zeros(()))
     return lm + aux_coeff * aux, (lm, aux)
@@ -212,4 +250,90 @@ def build_train_step(model: MoELM, optimizer: torch.optim.Optimizer,
     ``aux_loss_coeff``, in place, as ``gpt2.build_train_step``
     (``donate=False`` is not offered)."""
     loss = functools.partial(loss_fn, aux_coeff=model.config.aux_loss_coeff)
-    return gpt2.in_place_step(model, optimizer, loss, donate, has_aux=True)
+    return gpt2.in_place_step(model, optimizer, loss, donate, has_aux=True,
+                              grad_sync=getattr(model, "ep_grad_sync",
+                                                None))
+
+
+def _route_group(model: MoELM):
+    return next((b.route_group for b in model.h
+                 if isinstance(b, MoEBlock)), None)
+
+
+def shard_experts(model: MoELM, mesh, ep_axis: Optional[str] = None
+                  ) -> Dict[nn.Parameter, torch.Size]:
+    """Keep this rank's experts of every MoE block, in place: rank i of
+    ``mesh``'s ``ep_axis`` (default ``config.ep_axis``) keeps experts
+    [i*E/n, (i+1)*E/n) of ``wi`` and ``wo``, and the blocks are bound to
+    the axis's group (``moe_ffn_ep``). Returns {expert parameter: its full
+    shape}."""
+    from ray_tpu_torch.parallel.mesh_utils import tp_slice
+
+    ep_axis = ep_axis or model.config.ep_axis
+    group = mesh.get_group(ep_axis)
+    n = mesh.size(mesh.mesh_dim_names.index(ep_axis))
+    index = mesh.get_local_rank(ep_axis)
+    if model.config.num_experts % n:
+        raise ValueError(f"{model.config.num_experts} experts do not split "
+                         f"over {n} ep shards")
+    full = {}
+    for block in model.h:
+        if isinstance(block, MoEBlock):
+            for p in (block.wi, block.wo):
+                full[p] = p.shape
+                p.data = tp_slice(p.data, "col", index, n)
+            block.ep_group = group
+    return full
+
+
+def shard_train_state_ep(model: MoELM, optimizer: torch.optim.Optimizer,
+                         mesh, *, data_axis: str = "data",
+                         ep_axis: str = "ep"):
+    """GSPMD-style expert parallelism (the module's note): (model,
+    optimizer, place_batch). Each rank keeps its experts (``wi``/``wo``
+    over ``ep_axis``; their optimizer state cut alike), the router,
+    attention and embeddings stay replicated, and the MoE blocks route over
+    every rank's tokens as one batch, so ``build_train_step`` gives the
+    local step's loss on the global batch. ``place_batch(batch)`` is this
+    rank's block of the global batch, its leading dim split over (data,
+    ep) in the mesh's order (the reference splits it over data alone and
+    lets XLA place the rest)."""
+    from ray_tpu_torch.parallel import collectives, mesh_utils
+
+    axes = (data_axis, ep_axis)
+    route = mesh_utils.flat_group(mesh, axes)
+    full = shard_experts(model, mesh, ep_axis)
+    index = mesh.get_local_rank(ep_axis)
+    n = mesh.size(mesh.mesh_dim_names.index(ep_axis))
+    for p, shape in full.items():
+        for k, v in optimizer.state.get(p, {}).items():
+            if torch.is_tensor(v) and v.shape == shape:
+                optimizer.state[p][k] = mesh_utils.tp_slice(v, "col", index,
+                                                            n)
+    for block in model.h:
+        if isinstance(block, MoEBlock):
+            block.route_group = route
+    data = [mesh.get_group(data_axis)]
+    experts = [p for p in model.parameters() if p in full]
+    replicated = [p for p in model.parameters() if p not in full]
+    grads = lambda ps: [p.grad for p in ps if p.grad is not None]
+
+    def sync():
+        collectives.psum_tensors_(grads(experts), data)
+        collectives.psum_tensors_(grads(replicated), [route])
+
+    model.ep_grad_sync = sync
+
+    def place_batch(batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        i, count = mesh_utils.shard_index(mesh, axes)
+        out = {}
+        for k, v in batch.items():
+            if v.shape[0] % count:
+                raise ValueError(f"batch of {v.shape[0]} does not split "
+                                 f"over {count} (data, ep) shards")
+            b = v.shape[0] // count
+            out[k] = v[i * b:(i + 1) * b]
+        return out
+
+    return model, optimizer, place_batch

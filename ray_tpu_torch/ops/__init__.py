@@ -8,6 +8,10 @@ from ray_tpu_torch.ops.attention import (
     flash_attention_fwd,
     online_block_update,
 )
+from ray_tpu_torch.ops.ring_attention import (
+    ring_attention,
+    ring_self_attention,
+)
 
 __all__ = [
     "attention_reference",
@@ -16,4 +20,6 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_fwd",
     "online_block_update",
+    "ring_attention",
+    "ring_self_attention",
 ]

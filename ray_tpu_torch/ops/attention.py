@@ -18,6 +18,8 @@ PyTorch counterpart of ``ray_tpu/ops/attention.py``:
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``: tensor-core kernels for f16
   and bf16, CUDA-core kernels for f32) or raises; on a CPU tensor it runs
   ``_flash_bwd_plain``.
+- ``flash_attention_bwd_from_stats``: the same grads from a given lse and
+  delta (ring attention's blocks, ``ops/ring_attention.py``).
 - ``_FlashAttention``: the ``torch.autograd.Function`` tying the two, the
   counterpart of the JAX package's ``_flash_pallas_diff``.
 - ``flash_attention``: (b, h, s, d) or (b, s, d), differentiable.
@@ -442,6 +444,33 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
         return _flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                 sm_scale=sm_scale)
     raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+
+
+def flash_attention_bwd_from_stats(q, k, v, do, lse, delta,
+                                   causal: bool = False,
+                                   sm_scale: Optional[float] = None):
+    """(dq, dk, dv) of folded (B*H, S, D) inputs from given row statistics:
+    ``lse`` and ``delta`` (B*H, Sq) f32, which may be those of a larger
+    attention that this (q, k/v) block pair is one part of (ring
+    attention's global lse, and delta from its final output): P is
+    recomputed as exp(s - lse), so each block's grads are its exact share.
+    Each grad in its input's dtype.
+
+    CUDA tensors go through the two sm_90a kernels (or this raises); CPU
+    tensors go through their plain blockwise versions."""
+    sm_scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    if q.is_cuda:
+        dq = _flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw)
+        dk, dv = _flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv
+    if q.device.type == "cpu":
+        kw.update(block_q=64, block_k=64)
+        dq = _bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+        dk, dv = _bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv
+    raise ValueError(f"flash_attention_bwd_from_stats: unsupported device "
+                     f"{q.device}")
 
 
 class _FlashAttention(torch.autograd.Function):

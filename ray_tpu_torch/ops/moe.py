@@ -28,7 +28,17 @@ Two dispatches of one function:
 Expert parallelism (``moe_ffn_ep``, ``ep_loss_and_grads``) runs over
 ``torch.distributed`` process groups where the reference has mesh axes:
 experts shard over the EP group and tokens reach them and return by
-``all_to_all_single``, which carries autograd.
+``all_to_all_single``, which carries autograd. ``moe_ffn_ep`` routes each
+rank's tokens on their own (capacity from the local count, as the
+reference's ``shard_map`` formulation). ``moe_ffn_ep_global`` routes as if
+the tokens of a whole route group were one batch (``route_global``): the
+reference's GSPMD expert parallelism, whose math is the local step's on
+the global batch. Each rank all-gathers the (ranks, E) per-expert counts;
+a token's global queue slot is its rank's exclusive prefix of its expert's
+count plus its local position; tokens past the global capacity are dropped
+and the kept ones go to the owners of their experts, in dispatch buffers
+as deep as the most tokens any rank keeps for one expert; the
+load-balance loss takes the global means.
 
 No TPU kernel lies behind this module: the reference's routing, einsums and
 expert products are jnp code that XLA compiles outside any Pallas kernel.
@@ -160,6 +170,96 @@ def moe_ffn_dense(params: Params, x: torch.Tensor,
     return torch.einsum("ecd,tec->td", expert_out, combine), aux
 
 
+def route_global(logits: torch.Tensor, capacity: int, group
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """``route`` over the tokens of every rank of ``group`` as one batch in
+    rank order (this rank's ``logits`` (T, E) are its block, T the same on
+    every rank): (expert, slot (the global queue position), local_slot
+    (the position among this rank's tokens of the expert, at most
+    ``slot``), keep (slot < ``capacity``), gate, aux over the global
+    means, kept (ranks, E): the tokens each rank of the group keeps for
+    each expert). aux and kept are the same on every rank; aux's backward
+    hands each rank its share (``collectives.psum_replicated``)."""
+    from ray_tpu_torch.parallel import collectives
+
+    E = logits.shape[1]
+    probs = torch.softmax(logits, dim=-1)
+    expert = torch.argmax(probs, dim=-1)
+    hot = expert == torch.arange(E, device=logits.device)[:, None]
+    local_slot = torch.cumsum(hot, dim=1).gather(0, expert[None, :])[0] - 1
+    counts = hot.sum(dim=1)
+    n = collectives._size(group)
+    all_counts = (collectives._gather_stacked(counts, group, n) if n > 1
+                  else counts[None])
+    # each rank's exclusive prefix of each expert's queue
+    before = torch.cumsum(all_counts, dim=0) - all_counts
+    slot = local_slot
+    if n > 1:
+        import torch.distributed as dist
+
+        slot = local_slot + before[dist.get_rank(group)].gather(0, expert)
+    kept = torch.minimum(all_counts, (capacity - before).clamp(min=0))
+    keep = slot < capacity
+    gate = probs.gather(1, expert[:, None])[:, 0]
+    total = logits.shape[0] * n
+    f = all_counts.sum(dim=0).to(logits.dtype) / total
+    p = collectives.psum_replicated(probs.sum(dim=0), group) / total
+    aux = E * (f * p).sum()
+    return expert, slot, local_slot, keep, gate, aux, kept
+
+
+def _exchange_ffn(params: Params, expert_in: torch.Tensor, group
+                  ) -> torch.Tensor:
+    """The experts of the EP ``group`` on every rank's (E, C, d) dispatch:
+    an all-to-all hands each rank its experts' (E_local, n*C, d) rows from
+    every sender, the experts run, and the inverse all-to-all returns each
+    sender its (E, C, d) rows."""
+    from torch.distributed.nn.functional import all_to_all_single
+
+    n = torch.distributed.get_world_size(group)
+    E, capacity, d = expert_in.shape
+    E_local = E // n
+    # chunk i of the expert dim goes to rank i; chunk j received came from
+    # rank j: (n senders, E_local, C, d)
+    received = all_to_all_single(torch.empty_like(expert_in), expert_in,
+                                 group=group)
+    rows = received.view(n, E_local, capacity, d).transpose(0, 1)
+    expert_out = expert_ffn(params["wi"], params["wo"],
+                            rows.reshape(E_local, n * capacity, d))
+    back = expert_out.view(E_local, n, capacity, d).transpose(0, 1)
+    return all_to_all_single(torch.empty_like(expert_in),
+                             back.reshape(E, capacity, d), group=group)
+
+
+def moe_ffn_ep_global(params: Params, x: torch.Tensor, ep_group,
+                      route_group, capacity_factor: float = 1.25
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE with routing over ``route_group``'s tokens as
+    one batch (the module's note): ``x`` (T, d) is this rank's block of
+    the batch, the same T on every rank of ``route_group``; the experts
+    shard over ``ep_group`` as in ``moe_ffn_ep``. Capacity comes from the
+    global token count. Each rank's dispatch holds the most tokens any rank
+    keeps for any one expert (``route_global``'s ``kept``, the same on
+    every rank; read on the host), so an expert's owner runs n_ep times
+    that many rows, not n_ep times the global capacity. Returns (out (T,
+    d), aux), aux the global one."""
+    n_ep = torch.distributed.get_world_size(ep_group)
+    n_route = torch.distributed.get_world_size(route_group)
+    E = n_ep * params["wi"].shape[0]
+    capacity = expert_capacity(x.shape[0] * n_route, E, capacity_factor)
+    expert, _, local_slot, keep, gate, aux, kept = route_global(
+        x @ params["router"], capacity, route_group)
+    rows = max(1, int(kept.max()))
+    expert_in, flat = _dispatch(x, expert, local_slot, keep, E, rows)
+    if n_ep == 1:
+        expert_out = expert_ffn(params["wi"], params["wo"], expert_in)
+    else:
+        expert_out = _exchange_ffn(params, expert_in, ep_group)
+    return _combine(expert_out, flat, gate), aux
+
+
 def moe_ffn_ep(params: Params, x: torch.Tensor, group,
                capacity_factor: float = 1.25
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -172,26 +272,12 @@ def moe_ffn_ep(params: Params, x: torch.Tensor, group,
     (E_local, n*C, d) rows from every sender, the experts run, and the
     inverse all-to-all returns each sender its rows. aux is this rank's
     (local tokens); the caller averages it over the shards."""
-    from torch.distributed.nn.functional import all_to_all_single
-
     n = torch.distributed.get_world_size(group)
-    E_local = params["wi"].shape[0]
-    E = n * E_local
+    E = n * params["wi"].shape[0]
     capacity = expert_capacity(x.shape[0], E, capacity_factor)
     expert, slot, keep, gate, aux = route(x @ params["router"], capacity)
     expert_in, flat = _dispatch(x, expert, slot, keep, E, capacity)
-    d = x.shape[1]
-    # chunk i of the expert dim goes to rank i; chunk j received came from
-    # rank j: (n senders, E_local, C, d)
-    received = all_to_all_single(torch.empty_like(expert_in), expert_in,
-                                 group=group)
-    rows = received.view(n, E_local, capacity, d).transpose(0, 1)
-    expert_out = expert_ffn(params["wi"], params["wo"],
-                            rows.reshape(E_local, n * capacity, d))
-    back = expert_out.view(E_local, n, capacity, d).transpose(0, 1)
-    returned = all_to_all_single(torch.empty_like(expert_in),
-                                 back.reshape(E, capacity, d), group=group)
-    return _combine(returned, flat, gate), aux
+    return _combine(_exchange_ffn(params, expert_in, group), flat, gate), aux
 
 
 def ep_loss_and_grads(loss_fn: Callable[[Dict[str, torch.Tensor]],

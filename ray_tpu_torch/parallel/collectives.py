@@ -8,11 +8,31 @@ the train step (``models.gpt2.build_train_step``'s DDP communication hooks
 call ``chunked_psum`` and ``quantized_psum``); the out-of-step API
 (ray_tpu_torch.util.collective) is for orchestration-sized data. Each
 returns a new tensor and leaves its input as it was.
+
+Four of them carry autograd, for model parallelism inside the step, where
+the reference's ``shard_map`` gives each collective its transpose:
+
+- ``ppermute_next`` rotates a tensor one hop round an axis's ring (ring
+  attention's K/V, the pipeline's activations); its backward is the reverse
+  rotation.
+- ``psum_replicated`` sums a rank-varying value into one that every rank
+  holds (``lax.psum`` of a varying value into an invariant one); its
+  backward is the identity, because every rank goes on to compute the same
+  loss from the sum. (``torch.distributed.nn.functional.all_reduce`` sums
+  the cotangent over the ranks too, which multiplies such gradients by the
+  axis size.)
+- ``pbroadcast`` is its conjugate: the identity forward, a sum of the
+  cotangents over the axis backward (a replicated input of a sharded
+  product, Megatron's "f").
+- ``all_gather_replicated`` gathers every rank's block into one tensor
+  that every rank holds; its backward hands each rank its block's slice.
+
+At an axis of size 1 each is the identity and makes no call.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 
 def _pg(axis, mesh=None):
@@ -160,3 +180,156 @@ def compiled_allreduce(mesh, axis: str = "data"):
         return psum(x, group)
 
     return fn
+
+
+def _ring_peers(group):
+    """(global rank of the next, of the previous rank) on ``group``'s ring."""
+    import torch.distributed as dist
+
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    peer = lambda i: dist.get_global_rank(group, i) if group is not None \
+        and group is not dist.group.WORLD else i
+    return peer((me + 1) % n), peer((me - 1) % n)
+
+
+def _rotate(x, group, backward: bool = False):
+    """One ``batch_isend_irecv``: send ``x`` to the next rank and receive
+    the previous rank's (the reverse with ``backward``)."""
+    import torch
+    import torch.distributed as dist
+
+    nxt, prev = _ring_peers(group)
+    to, frm = (prev, nxt) if backward else (nxt, prev)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    for work in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, to, group),
+            dist.P2POp(dist.irecv, out, frm, group)]):
+        work.wait()
+    return out
+
+
+def _function_classes():
+    import torch
+
+    class RingPermute(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            ctx.group = group
+            return _rotate(x, group)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return _rotate(grad, ctx.group, backward=True), None
+
+    class PsumReplicated(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            return psum(x, group)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad, None
+
+    class PBroadcast(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            ctx.group = group
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return psum(grad, ctx.group), None
+
+    class GatherReplicated(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group, dim):
+            import torch.distributed as dist
+
+            ctx.group, ctx.dim = group, dim
+            ctx.index, ctx.size = dist.get_rank(group), x.shape[dim]
+            return all_gather(x, group, axis_index=dim)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad.narrow(ctx.dim, ctx.index * ctx.size,
+                               ctx.size), None, None
+
+    return {f.__name__: f for f in (RingPermute, PsumReplicated, PBroadcast,
+                                    GatherReplicated)}
+
+
+_FUNCTIONS = None
+
+
+def _fn(name: str):
+    """The autograd Function ``name``, defined at the first call (this
+    module imports torch only inside its functions)."""
+    global _FUNCTIONS
+    if _FUNCTIONS is None:
+        _FUNCTIONS = _function_classes()
+    return _FUNCTIONS[name]
+
+
+def ppermute_next(x, axis=None, *, mesh=None):
+    """Rotate ``x`` one hop round the ring of ``axis``: rank r sends to
+    (r + 1) % n and receives from (r - 1) % n, in one
+    ``batch_isend_irecv``. Differentiable: the backward rotates the
+    cotangent the other way. Every rank of the axis must call it, in the
+    same order, and so must every rank's backward."""
+    group = _pg(axis, mesh)
+    if _size(group) == 1:
+        return x
+    return _fn("RingPermute").apply(x, group)
+
+
+def psum_replicated(x, axis=None, *, mesh=None):
+    """The sum of every rank's ``x`` over ``axis``, held by each rank, with
+    an identity backward (see the module's note)."""
+    group = _pg(axis, mesh)
+    if _size(group) == 1:
+        return x
+    return _fn("PsumReplicated").apply(x, group)
+
+
+def pbroadcast(x, axis=None, *, mesh=None):
+    """``x`` as it is, with the backward summing the cotangent over
+    ``axis`` (see the module's note)."""
+    group = _pg(axis, mesh)
+    if _size(group) == 1:
+        return x
+    return _fn("PBroadcast").apply(x, group)
+
+
+def all_gather_replicated(x, axis=None, *, dim: int = 0, mesh=None):
+    """Every rank's ``x`` concatenated along ``dim`` in the axis's rank
+    order, held by each rank; the backward hands each rank the slice of
+    the cotangent at its own block (the transpose of gathering a varying
+    value into an invariant one)."""
+    group = _pg(axis, mesh)
+    if _size(group) == 1:
+        return x
+    return _fn("GatherReplicated").apply(x, group, dim)
+
+
+def psum_tensors_(tensors: Iterable, groups: Sequence, *, scale=None):
+    """Sum each tensor of ``tensors`` over every group of ``groups`` in
+    turn, in place, through one flat buffer per dtype (one all-reduce per
+    group); then multiply by ``scale`` if given. Groups of size 1 make no
+    call. A gradient reduction after ``backward()``."""
+    import torch
+    import torch.distributed as dist
+
+    groups = [g for g in groups if _size(g) > 1]
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        if groups:
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            for g in groups:
+                dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=g)
+            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                t.copy_(part.view_as(t))
+        if scale is not None and scale != 1:
+            torch._foreach_mul_(ts, scale)

@@ -7,13 +7,15 @@ same order, over the ranks of the gang's process group (one rank per CUDA
 card, or per CPU process under gloo): each axis is a process group, data
 parallelism is DDP over the data axes' group, and parameter sharding is FSDP2
 (``fully_shard``) over the ``fsdp`` axis, HSDP when a ``data`` axis is there
-too.
+too. Tensor parallelism (``apply_tp_plan``) slices each parameter of a
+plan over the ``model`` axis and gives its Dense layer the collectives of
+Megatron's layout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 # Canonical axis order: data-like axes outermost (ride the slower links),
 # model-like innermost (ride NVLink between neighbours).
@@ -139,4 +141,93 @@ def shard_params_fsdp(module, mesh, min_size: int = 2**16,
         if own and max(p.numel() for p in own) >= min_size:
             fully_shard(sub, mesh=shard_mesh)
     fully_shard(module, mesh=shard_mesh)
+    return module
+
+
+def logical_to_physical(logical_axes: Sequence[Optional[str]],
+                        rules: Mapping[str, Optional[str]]
+                        ) -> Tuple[Optional[str], ...]:
+    """Map logical array axes to mesh axis names via sharding rules (the
+    scaling-book recipe: annotate logically, map with one rule table). The
+    reference returns a ``PartitionSpec``; the port has none, so this is
+    the tuple of its entries."""
+    return tuple(rules.get(a) if a else None for a in logical_axes)
+
+
+def flat_group(mesh, axes: Sequence[str]):
+    """One process group over ``axes`` of ``mesh`` together, its ranks in
+    row-major order of the mesh: one axis's group, the default group when
+    ``axes`` are all of the mesh's axes, else the flattened sub-mesh's."""
+    import torch.distributed as dist
+
+    names = [a for a in mesh.mesh_dim_names if a in axes]
+    if len(names) != len(axes):
+        raise ValueError(f"axes {tuple(axes)} are not all axes of the mesh "
+                         f"{mesh.mesh_dim_names}")
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    if len(names) == len(mesh.mesh_dim_names):
+        return dist.group.WORLD
+    return mesh[tuple(names)]._flatten().get_group()
+
+
+# Tensor-parallel placements of a torch parameter over the model axis: "rep"
+# replicated; "col" split on dim 0 (a Linear weight's output features, or
+# the bias of such a layer); "row" split on dim 1 (its input features);
+# "col_qkv" a fused q|k|v weight or bias (3C rows), each third split on
+# dim 0, so that a rank holds whole heads of each of q, k and v.
+TP_PLACEMENTS = ("rep", "col", "row", "col_qkv")
+
+
+def tp_slice(t, placement: str, index: int, n: int):
+    """Rank ``index`` of ``n``'s part of the full tensor ``t`` under
+    ``placement`` (a contiguous copy; ``t`` itself for "rep")."""
+    import torch
+
+    if placement == "rep":
+        return t
+    if placement == "col_qkv":
+        return torch.cat([tp_slice(part, "col", index, n)
+                          for part in t.chunk(3, dim=0)])
+    dim = {"col": 0, "row": 1}.get(placement)
+    if dim is None:
+        raise ValueError(f"unknown tensor-parallel placement {placement!r}")
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {n} ranks")
+    size = t.shape[dim] // n
+    return t.narrow(dim, index * size, size).contiguous()
+
+
+def apply_tp_plan(module, plan: Mapping[str, str], mesh,
+                  model_axis: str = "model"):
+    """Place ``module``'s parameters by ``plan`` ({parameter name:
+    placement}, ``TP_PLACEMENTS``) over ``mesh``'s ``model_axis``: each
+    sharded parameter keeps this rank's part in place (the same Parameter
+    object, so an optimizer over it stays valid), and each Dense layer whose
+    weight is split gets its collectives: a column-parallel layer (weight
+    "col" or "col_qkv") sums its input's gradient over the axis
+    (``collectives.pbroadcast``), a row-parallel one ("row") sums its
+    product over the axis (``collectives.psum_replicated``) before its
+    bias. The counterpart of placing the reference's tree with its
+    shardings. Returns ``module``."""
+    group = mesh.get_group(model_axis)
+    n, index = mesh.size(mesh.mesh_dim_names.index(model_axis)), \
+        mesh.get_local_rank(model_axis)
+    params = dict(module.named_parameters())
+    if set(plan) != set(params):
+        raise ValueError("the plan does not name every parameter of the "
+                         "module")
+    for name, placement in plan.items():
+        if placement != "rep":
+            params[name].data = tp_slice(params[name].data, placement,
+                                         index, n)
+    for name, mod in module.named_modules():
+        placement = plan.get(f"{name}.weight") if name else None
+        if placement in ("col", "col_qkv", "row"):
+            if not hasattr(mod, "tp_mode"):
+                raise ValueError(f"{name} is split but is not a Dense "
+                                 "layer")
+            mod.tp_mode = "row" if placement == "row" else "col"
+            mod.tp_group = group
     return module

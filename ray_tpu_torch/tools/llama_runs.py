@@ -142,6 +142,9 @@ def time_steps(model: llama.Llama, tokens: torch.Tensor, prompt_len: int,
     device = tokens.device
     B, S = tokens.shape
     caches = llama.init_kv_caches(model.config, B, S, device=device)
+    tp_group = model.h[0].attn.k_proj.tp_group
+    if tp_group is not None:  # as ``generate`` splits them
+        caches = llama.shard_kv_caches_tp(caches, tp_group)
     _sync(device)
     zero()
     t0 = time.perf_counter()

@@ -105,3 +105,17 @@ def device_ms(fn: Callable[[], object], iters: int = 20) -> Optional[float]:
     """Mean ms per call that the card spends in ``fn``'s kernels (None when
     the profiler sees none)."""
     return profile_calls(fn, iters)[2]
+
+
+def launch_ms(fn: Callable[[], object], iters: int = 20
+              ) -> Tuple[Optional[float], int]:
+    """For an ``fn`` that launches one kernel a call: (the mean ms of the
+    kernel records the profiler kept, None without any; their number, of
+    ``iters``). Where the profiler keeps fewer records than the calls
+    launched, ``device_ms``'s sum over the calls reads low; this mean
+    does not."""
+    _, cuda = _profiled(fn, iters)
+    if not cuda:
+        return None, 0
+    return (sum(e.time_range.elapsed_us() for e in cuda) / len(cuda) / 1e3,
+            len(cuda))

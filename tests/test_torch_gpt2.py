@@ -129,8 +129,8 @@ def test_params_from_jax_layout_and_missing_leaf():
 
 def test_config_attention_modes():
     assert tgpt2.GPT2Config().dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        tgpt2.GPT2Config.small_test(attention="ring")
+    ring = tgpt2.GPT2Config.small_test(attention="ring")
+    assert ring.attention == "ring" and ring.sp_axis == "sp"
     with pytest.raises(ValueError):
         tgpt2.GPT2Config.small_test(attention="splash")
 
