@@ -354,6 +354,58 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    prefill and 992 in the decode steps. Prints each step's ms beside phase
    8's and phase 17's.
 
+28-32. The second RLlib slice (run right after phase 2, before phase 24;
+   each learner in the driver on the card, ``num_gpus_per_learner`` 1, the
+   default; each update's profile (ms by CUDA events, the kernels' busy ms,
+   launches and idle share) is taken after phase 25, in one
+   ``rllib_update_profiles`` line). Each phase checks: the learner's
+   parameters and optimizer moments on the card; the driver has the card
+   open and no session process does; no session process left after
+   shutdown; the learner's next update, from its trained weights, Adam
+   state (and target) on one batch, on the card and on the CPU, TF32 off,
+   agree in metrics and weights at rtol 1e-5, atol 1e-6 (DT: see 32); no
+   flash kernel launched but by DT. Each prints iterations to the bar, env
+   steps/s (offline: dataset rows consumed a second) and its host split.
+28. rllib_offline: ``run_regression.offline_dataset("cartpole_expert")``
+   once (PPO, 8 iterations with its learner on the card, then 2 x 512
+   steps from its CPU runner); then ``cartpole-marwil`` and
+   ``cartpole-cql`` built by ``run_regression.build_algorithm``, and BC as
+   ``test_bc_clones_expert`` runs it (20 epochs x minibatch 256, lr 3e-3),
+   each ``train()`` followed by a greedy ``evaluate()`` on the one CPU
+   runner until the evaluation return reaches the bar (60; BC 50) within
+   the budget (30, 40; BC 1 iteration).
+29. rllib_qmix: ``twostep-qmix`` (one CPU runner, fragments of 64, seed
+   3) until the training return reaches 7.5 within 60 iterations; the
+   timesteps equal 64 a iteration.
+30. rllib_r2d2: ``memorychain-r2d2`` (one CPU runner, 32 episodes of 4
+   steps an iteration, seed 0) until the training return reaches 0.9
+   within 40 iterations; the timesteps equal 128 an iteration.
+31. rllib_dreamerv3: ``test_dreamerv3_learns_cartpole``'s contract:
+   ``DreamerV3Config()`` on CartPole, seed 0, 35 iterations (200 env
+   steps from the one collector in the driver, 8 updates of batch 8 x 32,
+   horizon 15): the best training return above 40, the state round trip
+   equal to the bit and a 2-episode greedy evaluation. The CPU update
+   replays the card's latent and action draws. (The yaml's full bar, 100
+   in 130 iterations, is ``python -m ray_tpu_torch.rllib.run_regression
+   --select cartpole-dreamerv3``, run apart.)
+32. rllib_dt: ``cartpole-dt`` on phase 28's file (context 8, minibatch
+   128, 25 updates an iteration, seed 0) until the return-conditioned
+   greedy evaluation reaches 60 within 12 iterations; attention through the
+   three f32 flash kernels at D 32, S 24 (B*H 256 a minibatch, 2 an
+   action). Launch counts read around training and evaluation apart, and
+   around one update (2 of each kernel) and one action (2 ``flash_fwd``).
+   The q, k, v and dO DT hands the kernels in one update (and q, k, v of
+   one action) go through the kernels again against their plain versions
+   at the f32 ``TOLS``, element by element. Its CUDA-vs-CPU update holds
+   the kernel path against the plain path, so its limit is the f32
+   ``TOLS``; the key biases are held apart at 2 x lr (softmax does not see
+   them; their gradients are rounding noise that Adam scales to steps of
+   up to lr). Its ``kernels`` rows (``dt_train``, ``dt_act``) come last in
+   that line: ms by events (taken here, before any profiler session), the
+   plain versions' ms, SDPA's f32 forward and backward at the same shape
+   as a yardstick, the bound against the f32 CUDA-core peak (67 TFLOP/s)
+   and HBM, the errors from the real activations, and device ms.
+
 Every phase raises on a failed check; no failure is caught.
 
 The ``kernels`` line comes after phase 27: phase 15's entries (with the
@@ -361,12 +413,11 @@ ring's diagonal and whole blocks at B*H 192, S 256 with phase 26's
 launches by block kind, and the pipelined step's microbatch at B*H 48, S
 1024, each timed there, with phase 27's launches), phase 27's SP, TP, EP
 and Llama TP paths (which carry the times of the shapes they run at),
-then the
-ViT-in-a-trial path's rows (phase 15's times at ViT-B/16's shape with the
-launches the trials' workers counted) and the batch-prediction path's
-``flash_fwd`` row (the same times, with the launches the predictor's
-actors counted). Then one line with each phase's seconds. The last two lines are the
-``nvidia-smi`` line and
+then the ViT-in-a-trial path's rows (phase 15's times at ViT-B/16's shape
+with the launches the trials' workers counted), the batch-prediction
+path's ``flash_fwd`` row (the same times, with the launches the
+predictor's actors counted) and phase 32's DT rows. Then one line with
+each phase's seconds. The last two lines are the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -375,6 +426,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import copy
 import hashlib
 import json
 import math
@@ -383,13 +435,16 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM rate and dense bf16
+# H100 SXM published peaks (NVIDIA data sheet): HBM rate, dense bf16 on the
+# tensor cores, and f32 on the CUDA cores (the f32 flash kernels' design)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12
 
 GPT2_124M = dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
                  n_head=12)
@@ -3046,6 +3101,733 @@ def phase_rllib_impala_group(smi):
         raise AssertionError("rllib_impala_group: " + "; ".join(problems))
 
 
+# phases 28-32: the second RLlib slice (offline RL, QMIX, R2D2, DreamerV3,
+# DT), every learner in the driver on the card
+RLLIB2 = {"marwil": "cartpole-marwil", "cql": "cartpole-cql",
+          "dt": "cartpole-dt", "qmix": "twostep-qmix",
+          "r2d2": "memorychain-r2d2",
+          # BC as tests/test_rllib.py::test_bc_clones_expert runs it
+          "bc": {"num_epochs": 20, "minibatch_size": 256, "lr": 3e-3},
+          "bc_bar": 50.0,
+          # tests/test_rllib_dreamerv3.py::test_dreamerv3_learns_cartpole
+          "dreamer": {"seed": 0, "iterations": 35, "bar": 40.0},
+          "batch_seed": 74}
+
+
+def _learner_devices(params, optimizers):
+    """(the devices of the parameters, of the optimizers' moment tensors)."""
+    return (sorted({str(p.device) for p in params}),
+            sorted({str(v.device) for opt in optimizers
+                    for s in opt.state.values() for v in s.values()
+                    if torch.is_tensor(v) and v.dim() > 0}))
+
+
+def _flat(state, prefix=""):
+    """{name: array} of a state, nested dicts' names joined with dots."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _cuda_vs_cpu(run, rtol, atol, apart=None):
+    """``run(device) -> (metrics, weights)``: the learner's next update, from
+    its trained weights and optimizer state (and target), on the same batch
+    on the card and on the CPU, TF32 off. (A fresh Adam's first step, lr x
+    g / (|g| + eps), turns the devices' rounding of a near-zero gradient
+    into steps of up to lr.) Returns
+    the max abs errors of the metrics and the weights, whether both agree
+    at (rtol, atol) and whether to the bit. ``apart`` = (name suffix, atol)
+    holds the weights whose names end so at their own limit."""
+    (m_gpu, w_gpu), (m_cpu, w_cpu) = run("cuda"), run("cpu")
+    w_gpu, w_cpu = _flat(w_gpu), _flat(w_cpu)
+    main = [k for k in w_cpu if not (apart and k.endswith(apart[0]))]
+    held = [k for k in w_cpu if k not in main]
+    metric_err = max(abs(m_gpu[k] - m_cpu[k]) for k in m_cpu)
+    err = lambda ks: max((float(np.abs(w_gpu[k] - w_cpu[k]).max())
+                          for k in ks), default=0.0)
+    close = all(np.allclose(m_gpu[k], m_cpu[k], rtol=rtol, atol=atol)
+                for k in m_cpu) and all(
+        np.allclose(w_gpu[k], w_cpu[k], rtol=rtol, atol=atol) for k in main)
+    if held:
+        close = close and err(held) <= apart[1]
+    bits = m_gpu == m_cpu and all(np.array_equal(w_gpu[k], w_cpu[k])
+                                  for k in w_cpu)
+    out = {"metrics_max_abs_err": metric_err, "weights_max_abs_err":
+           err(main), "rtol": rtol, "atol": atol, "agree": bool(close),
+           "equal_bits": bool(bits)}
+    if held:
+        out.update(held_apart=held, held_apart_max_abs_err=err(held),
+                   held_apart_atol=apart[1])
+    return out
+
+
+def _train_to_eval_bar(algo, bar, budget, evaluate):
+    """``algo.train()`` then ``evaluate()`` (a greedy evaluation return) each
+    iteration until the evaluation reaches the bar or the budget is spent:
+    (iterations, best, evaluations, host seconds of each ``train()``, of
+    each evaluation)."""
+    evals, iter_s, eval_s = [], [], []
+    for it in range(1, budget + 1):
+        t0 = time.perf_counter()
+        algo.train()
+        iter_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        evals.append(evaluate())
+        eval_s.append(time.perf_counter() - t0)
+        if evals[-1] >= bar:
+            break
+    return it, max(evals), evals, iter_s, eval_s
+
+
+def _rows_of(batch, n, seed):
+    """``n`` rows of a SampleBatch drawn with numpy ``seed``."""
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+
+    idx = np.random.default_rng(seed).integers(0, batch.count, n)
+    return SampleBatch({k: np.asarray(v)[idx] for k, v in batch.items()})
+
+
+def _driver_learner_fields(params, optimizers, session_dir, dev):
+    """The learner's place: its parameters and moments on the card, the
+    driver with the card open, no other session process with it open."""
+    param_devices, state_devices = _learner_devices(params, optimizers)
+    on_card = _on_card(session_dir, ()) if session_dir else {}
+    fields = {"param_devices": param_devices,
+              "adam_state_devices": state_devices,
+              "session_processes_on_card": on_card,
+              "driver_card_fds": _card_fds(os.getpid())}
+    problems = []
+    if param_devices != [str(dev)] or state_devices != [str(dev)]:
+        problems.append(f"learner on {param_devices}, moments on "
+                        f"{state_devices}")
+    if on_card or not fields["driver_card_fds"]:
+        problems.append(f"session processes on the card: {on_card}; the "
+                        f"driver's open files on it: "
+                        f"{fields['driver_card_fds']}")
+    return fields, problems
+
+
+def _offline_update(learner_cls, config, weights, opt_state, batch, dev):
+    from ray_tpu_torch.rllib.rl_module import RLModule
+
+    module = RLModule((4,), 2, seed=0, device=dev,
+                      hiddens=config.model["hiddens"])
+    module.set_state(weights)
+    learner = learner_cls(module, config)
+    # a copy: on the CPU, loading would share the moments it steps in place
+    learner.set_optimizer_state(copy.deepcopy(opt_state))
+    return learner.update(batch), module.get_state()
+
+
+def phase_rllib_offline(smi):
+    """``cartpole-marwil`` and ``cartpole-cql`` as the repo ships them, and BC
+    as ``test_bc_clones_expert`` runs it, on the expert dataset
+    ``run_regression.offline_dataset("cartpole_expert")`` makes once (PPO, 8
+    iterations with its learner on the card, then 2 x 512 steps from its
+    CPU runner). Each learner in the driver on the card, one CPU runner for
+    the greedy evaluations. Returns {name: a function profiling one update
+    of that learner}, to run after phase 25."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.rllib import BCConfig
+    from ray_tpu_torch.rllib.offline import read_json_fragments
+    from ray_tpu_torch.rllib.run_regression import (
+        build_algorithm,
+        offline_dataset,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    init_s = time.perf_counter() - t0
+    session_dir = global_worker.node.session_dir
+    rows, profiles, problems = {}, {}, []
+    try:
+        t0 = time.perf_counter()
+        path = offline_dataset("cartpole_expert")
+        dataset_s = time.perf_counter() - t0
+        frags = read_json_fragments(path)
+        runs = [(key, _tuned_example(RLLIB2[key])) for key in ("marwil",
+                                                               "cql")]
+        runs.append(("bc", {"stop": {"evaluation_return_mean":
+                                     RLLIB2["bc_bar"],
+                                     "training_iteration": 1}}))
+        for key, spec in runs:
+            stop = spec["stop"]
+            t0 = time.perf_counter()
+            if key == "bc":
+                algo = BCConfig().environment("CartPole-native").offline_data(
+                    input_=path).training(**RLLIB2["bc"]).build()
+            else:
+                algo = build_algorithm(spec)
+            build_s = time.perf_counter() - t0
+            try:
+                _zero_launches()
+                iters, best, evals, iter_s, eval_s = _train_to_eval_bar(
+                    algo, stop["evaluation_return_mean"],
+                    stop["training_iteration"],
+                    lambda: algo.evaluate()["evaluation"][
+                        "episode_return_mean"])
+                flash = _read_launches()
+                learner, cfg = algo.learner, algo.config
+                place, bad = _driver_learner_fields(
+                    learner.params, [learner.optimizer], session_dir, dev)
+                batch = (_rows_of(algo._dataset, cfg.minibatch_size,
+                                  RLLIB2["batch_seed"]) if key == "cql"
+                         else algo._dataset)
+                weights = learner.get_weights()
+                opt_state = learner.get_optimizer_state()
+                cuda_cpu = _cuda_vs_cpu(
+                    lambda d, lc=type(learner), c=cfg, w=weights,
+                    o=opt_state, b=batch: _offline_update(lc, c, w, o, b, d),
+                    RLLIB["rtol"], RLLIB["atol"])
+                timesteps = algo._timesteps
+            finally:
+                algo.stop()
+            train_s = sum(iter_s)
+            row = {"config": "BCConfig as test_bc_clones_expert runs it: "
+                             "20 epochs x minibatch 256, lr 3e-3"
+                   if key == "bc" else RLLIB2[key],
+                   "bar": stop["evaluation_return_mean"],
+                   "budget": stop["training_iteration"], "iterations": iters,
+                   "best_evaluation": best, "evaluations": evals,
+                   "timesteps": timesteps, "samples_per_s": timesteps / train_s,
+                   "train_s": train_s, "iteration_s": iter_s,
+                   "evaluate_s": eval_s, "build_s": build_s,
+                   "flash_launches": flash, "cuda_vs_cpu_update": cuda_cpu,
+                   "update_batch_rows": batch.count, **place}
+            rows[key] = row
+            profiles[f"{key}_update"] = (
+                lambda l=learner, b=batch: _update_profile(l, b))
+            if best < stop["evaluation_return_mean"]:
+                bad.append(f"best evaluation {best} below the bar in "
+                           f"{iters} iterations")
+            if not cuda_cpu["agree"]:
+                bad.append(f"CUDA vs CPU update: {cuda_cpu}")
+            if any(flash.values()):
+                bad.append(f"flash kernels launched: {flash}")
+            problems += [f"{key}: {p}" for p in bad]
+    finally:
+        rt.shutdown()
+    left = _wait_for_no_processes(session_dir)
+    if left:
+        problems.append(f"session processes left after shutdown: {left}")
+    emit("rllib_offline", dataset=path, dataset_s=dataset_s,
+         dataset_rows=sum(f.count for f in frags),
+         dataset_fragments=len(frags), init_s=init_s, runs=rows,
+         processes_left=left, device_name=torch.cuda.get_device_name(dev),
+         nvidia_smi=smi,
+         note="each train() then a greedy evaluate() on the CPU runner "
+              "until the evaluation return reaches the bar; host clock; "
+              "samples/s = dataset rows consumed by the learner a second; "
+              "the update profiles (one learner.update: the whole "
+              "dataset's epochs for MARWIL and BC, one minibatch of 256 for "
+              "CQL) are in the rllib_update_profiles line")
+    if problems:
+        raise AssertionError("rllib_offline: " + "; ".join(problems))
+    return profiles
+
+
+def _replay_phase(smi, key, make_batch, make_learner, rows_per_iteration):
+    """A tuned example with CPU runners and a replay buffer (QMIX, R2D2),
+    the learner in the driver on the card: ``train()`` to the yaml's
+    ``episode_return_mean`` bar, then the learner's next update (its
+    weights, Adam state and target) on one buffer sample on the card and on
+    the CPU. Returns
+    (the phase's fields, its problems, a function profiling one update)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.rllib.run_regression import build_algorithm
+
+    spec = _tuned_example(RLLIB2[key])
+    stop = spec["stop"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    init_s = time.perf_counter() - t0
+    session_dir = global_worker.node.session_dir
+    updates = []
+    try:
+        t0 = time.perf_counter()
+        algo = build_algorithm(spec)
+        build_s = time.perf_counter() - t0
+        learner = algo.learner
+        _timed_method(learner, "update", updates)
+        _zero_launches()
+        iters, best, returns, iter_s = _train_to_bar(algo, stop)
+        flash = _read_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        place, problems = _driver_learner_fields(
+            learner.params, [learner.optimizer], session_dir, dev)
+        timesteps, cfg = algo._timesteps, algo.config
+        batch = make_batch(algo)
+        weights = learner.get_weights()
+        opt_state = learner.get_optimizer_state()  # with the target
+
+        def run(d):
+            fresh = make_learner(cfg, d)
+            fresh.module.set_state(weights)
+            fresh.set_optimizer_state(copy.deepcopy(opt_state))
+            return fresh.update(batch), fresh.get_weights()
+
+        cuda_cpu = _cuda_vs_cpu(run, RLLIB["rtol"], RLLIB["atol"])
+    finally:
+        try:
+            algo.stop()
+        finally:
+            rt.shutdown()
+    left = _wait_for_no_processes(session_dir)
+    train_s = sum(iter_s)
+    row = {"config": f"{RLLIB2[key]} (ray_tpu_torch/rllib/tuned_examples)",
+           "bar": stop["episode_return_mean"],
+           "budget": stop["training_iteration"], "iterations": iters,
+           "best": best, "returns": returns, "timesteps": timesteps,
+           "env_steps_per_s": timesteps / train_s, "train_s": train_s,
+           "iteration_s": iter_s, "init_s": init_s, "build_s": build_s,
+           "update_s": [u["s"] for u in updates],
+           "learner_peak_memory_bytes": peak, "flash_launches": flash,
+           "cuda_vs_cpu_update": cuda_cpu, "processes_left": left,
+           "update_batch_rows": len(batch["rewards"]), **place,
+           "device_name": torch.cuda.get_device_name(dev),
+           "nvidia_smi": smi}
+    if best < stop["episode_return_mean"]:
+        problems.append(f"best {best} below the bar in {iters} iterations")
+    if timesteps != rows_per_iteration(cfg) * iters:
+        problems.append(f"timesteps {timesteps} vs "
+                        f"{rows_per_iteration(cfg)} x {iters} iterations")
+    if not cuda_cpu["agree"]:
+        problems.append(f"CUDA vs CPU update: {cuda_cpu}")
+    if any(flash.values()):
+        problems.append(f"flash kernels launched: {flash}")
+    if left:
+        problems.append(f"session processes left after shutdown: {left}")
+    return row, problems, lambda: _update_profile(learner, batch)
+
+
+def phase_rllib_qmix(smi):
+    """``twostep-qmix`` as the repo ships it: QMIX, one CPU runner,
+    fragments of 64, lr 5e-3, 8 updates of minibatch 64 an iteration,
+    seed 3."""
+    from ray_tpu_torch.rllib.qmix import QMixLearner, QMixModule
+
+    def make_learner(cfg, d):
+        module = QMixModule(3, 2, 2, 3, hiddens=tuple(cfg.model["hiddens"]),
+                            embed_dim=cfg.mixing_embed_dim, device=d)
+        return QMixLearner(module, cfg)
+
+    row, problems, profile = _replay_phase(
+        smi, "qmix", lambda algo: algo.buffer.sample(
+            algo.config.minibatch_size), make_learner,
+        lambda cfg: cfg.rollout_fragment_length * cfg.num_env_runners)
+    emit("rllib_qmix", **row, note="host clock around algo.train() and "
+         "learner.update (which ends in a host read of its metrics); the "
+         "bar is the runner's training return (epsilon-greedy)")
+    if problems:
+        raise AssertionError("rllib_qmix: " + "; ".join(problems))
+    return profile
+
+
+def phase_rllib_r2d2(smi):
+    """``memorychain-r2d2`` as the repo ships it: R2D2, one CPU runner, 32
+    episodes of length 4 an iteration, lr 2e-3, 8 updates of 32 sequences,
+    seed 0."""
+    from ray_tpu_torch.rllib.r2d2 import R2D2Learner, R2D2Module
+
+    def make_learner(cfg, d):
+        return R2D2Learner(R2D2Module(3, 2, hidden=cfg.model["hidden"],
+                                      device=d), cfg)
+
+    row, problems, profile = _replay_phase(
+        smi, "r2d2", lambda algo: algo.buffer.sample(
+            algo.config.minibatch_size), make_learner,
+        # MemoryChain's episodes run their full length, the sequence's
+        lambda cfg: cfg.episodes_per_iteration * cfg.env_config["length"])
+    emit("rllib_r2d2", **row, note="host clock around algo.train() and "
+         "learner.update (which ends in a host read of its metrics); the "
+         "bar is the runner's training return (epsilon-greedy); one update "
+         "unrolls the online and target LSTMs over 5 steps")
+    if problems:
+        raise AssertionError("rllib_r2d2: " + "; ".join(problems))
+    return profile
+
+
+def phase_rllib_dreamerv3(smi):
+    """DreamerV3 as ``tests/test_rllib_dreamerv3.py::
+    test_dreamerv3_learns_cartpole`` runs it: ``DreamerV3Config()`` on
+    CartPole, seed 0, 35 iterations of 200 env steps (one collector env in
+    the driver, the policy on the card) and 8 updates of batch 8 x 32 with
+    horizon 15; the best training return above 40; the state round trip
+    and a 2-episode greedy evaluation."""
+    from ray_tpu_torch.rllib import DreamerV3Config
+    from ray_tpu_torch.rllib.learner import _opt_state
+    from ray_tpu_torch.rllib.rl_module import set_state
+
+    spec = RLLIB2["dreamer"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = DreamerV3Config().environment("CartPole-native").debugging(
+        seed=spec["seed"])
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    build_s = time.perf_counter() - t0
+    updates, collects = [], []
+    _timed_method(algo, "train_step", updates)
+    _timed_method(algo, "_collect", collects)
+    _zero_launches()
+    returns, iter_s = [], []
+    for _ in range(spec["iterations"]):
+        t0 = time.perf_counter()
+        returns.append(algo.train().get("episode_return_mean"))
+        iter_s.append(time.perf_counter() - t0)
+    flash = _read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    best = max(r for r in returns if r is not None)
+    m = algo.module
+    params = [p for net in (m.wm, m.actor, m.critic) for p in net.parameters()]
+    place, problems = _driver_learner_fields(
+        params, [algo.wm_opt, algo.actor_opt, algo.critic_opt], None, dev)
+    state = m.get_state()
+    m.set_state(state)
+    again = _flat(m.get_state())
+    round_trip = all(np.array_equal(again[k], v)
+                     for k, v in _flat(state).items())
+    ev = algo.evaluate(episodes=2)["evaluation"]
+    batch = algo._sample_batch()
+    ema = {k: v.detach().cpu().numpy().copy()
+           for k, v in algo.critic_ema.state_dict().items()}
+    opts = ("wm_opt", "actor_opt", "critic_opt")
+    opt_states = {name: _opt_state(getattr(algo, name)) for name in opts}
+    ret_range = float(algo._ret_range)
+    drawn = {}
+
+    def run(d):
+        fresh = cfg.copy().learners(
+            num_gpus_per_learner=1 if d == "cuda" else 0).build()
+        try:
+            fresh.module.set_state(state)
+            set_state(fresh.critic_ema, ema)
+            for name in opts:
+                getattr(fresh, name).load_state_dict(
+                    copy.deepcopy(opt_states[name]))
+            fresh._ret_range.fill_(ret_range)
+            samples = drawn.get("samples")
+            if samples is not None:
+                samples = type(samples)(*(s.to(d) for s in samples))
+            metrics, used = fresh.train_step(batch, samples)
+            drawn.setdefault("samples", used)
+            return ({k: float(v) for k, v in metrics.items()},
+                    fresh.module.get_state())
+        finally:
+            fresh.stop()
+
+    cuda_cpu = _cuda_vs_cpu(run, RLLIB["rtol"], RLLIB["atol"])
+    timesteps = algo._timesteps
+    algo.stop()
+    train_s = sum(iter_s)
+    row = {"config": "DreamerV3Config() on CartPole-native, seed 0 (the "
+                     "reference test's contract)",
+           "bar": spec["bar"], "iterations": spec["iterations"],
+           "best": best, "returns": returns, "timesteps": timesteps,
+           "env_steps_per_s": timesteps / train_s, "train_s": train_s,
+           "iteration_s": iter_s, "build_s": build_s,
+           "collect_s": [c["s"] for c in collects],
+           "update_s": [u["s"] for u in updates],
+           "state_round_trip_equal_bits": round_trip, "evaluation": ev,
+           "learner_peak_memory_bytes": peak, "flash_launches": flash,
+           "cuda_vs_cpu_update": cuda_cpu, **place,
+           "device_name": torch.cuda.get_device_name(dev),
+           "nvidia_smi": smi}
+    emit("rllib_dreamerv3", **row, note="host clock around train(), "
+         "DreamerV3._collect (200 steps, one policy step on the card each) "
+         "and DreamerV3.train_step (which does not wait for the card; the "
+         "iteration's host read of its metrics does); the CPU update "
+         "replays the card's latent and action draws")
+    if not best > spec["bar"]:
+        problems.append(f"best {best} not above {spec['bar']} in "
+                        f"{spec['iterations']} iterations")
+    if not round_trip or ev["num_episodes"] != 2:
+        problems.append(f"state round trip {round_trip}, evaluation {ev}")
+    if not cuda_cpu["agree"]:
+        problems.append(f"CUDA vs CPU update: {cuda_cpu}")
+    if any(flash.values()):
+        problems.append(f"flash kernels launched: {flash}")
+    if problems:
+        raise AssertionError("rllib_dreamerv3: " + "; ".join(problems))
+    learner = types.SimpleNamespace(update=lambda b: algo.train_step(b))
+    return lambda: _update_profile(learner, batch)
+
+
+@contextlib.contextmanager
+def _capture_dt_attention():
+    """Record what the Decision Transformer hands ``flash_attention``: a
+    list that fills, one dict a call, with q, k, v folded to (B*H, S, D)
+    (copies) and, once the backward has run, the call's dO."""
+    from ray_tpu_torch.rllib import dt
+
+    kernel_path = dt.flash_attention
+    seen = []
+    fold = lambda t: t.detach().reshape(-1, *t.shape[-2:]).clone(
+        memory_format=torch.contiguous_format)
+
+    def recording(q, k, v, **kw):
+        out = kernel_path(q, k, v, **kw)
+        rec = {"q": fold(q), "k": fold(k), "v": fold(v), "kw": kw}
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__("do", fold(g)))
+        seen.append(rec)
+        return out
+
+    dt.flash_attention = recording
+    try:
+        yield seen
+    finally:
+        dt.flash_attention = kernel_path
+
+
+def _dt_activation_rows(calls, label):
+    """Each captured DT call through the three kernels against their plain
+    versions on its real activations, element by element at the f32
+    ``TOLS``: the forward always, the backward where a dO was captured."""
+    rows = []
+    for i, rec in enumerate(calls):
+        q, k, v = rec["q"], rec["k"], rec["v"]
+        ok, out_err, lse_err, share = _check_flash(q, k, v, True)
+        row = {"call": f"{label} layer {i}", "bh": q.shape[0],
+               "s": q.shape[1], "d": q.shape[2], "dtype": "float32",
+               "ok": ok, "flash_fwd_err": out_err, "lse_err": lse_err,
+               "flash_fwd_share_of_limit": share}
+        if "do" in rec:
+            b_ok, errs, shares, _ = _check_bwd(q, k, v, rec["do"], True)
+            row.update(ok=ok and b_ok, flash_bwd_dq_err=errs[0],
+                       flash_bwd_dkv_err=max(errs[1:]),
+                       flash_bwd_dq_share_of_limit=shares[0],
+                       flash_bwd_dkv_share_of_limit=max(shares[1:]))
+        rows.append(row)
+    return rows
+
+
+def _dt_kernel_rows(shapes, launches, act_rows):
+    """The DT path's rows of the ``kernels`` line: the three kernels at the
+    training shape ``shapes["train"]`` (B, H, S, D: minibatch, heads, 3 x
+    context, 32; causal, f32) and ``flash_fwd`` at the acting shape
+    ``shapes["act"]`` (B 1), on inputs from
+    a seed: ms by CUDA events, the plain versions' ms, SDPA's f32 forward
+    (and backward) as a yardstick, the bound against the f32 CUDA-core
+    peak; errors from the real activations (``act_rows``). Returns
+    (entries, a function giving their profiler fields, to run after every
+    CUDA-event timing)."""
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.tools import timing
+
+    entries, profiles = [], []
+    for path, (b, h, s, d), names in (
+            ("dt_train", shapes["train"], KERNELS),
+            ("dt_act", shapes["act"], ("flash_fwd",))):
+        bh = b * h
+        err = {name: max(r.get(f"{name}_err", 0.0) for r in act_rows[path])
+               for name in names}
+        gen = torch.Generator(device="cuda").manual_seed(RLLIB2["batch_seed"])
+        q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda")
+                       for _ in range(4))
+        kw = dict(causal=True, sm_scale=d ** -0.5)
+        out, lse = attn.flash_attention_fwd(q, k, v, causal=True)
+        delta = attn._delta(out, do)
+        calls = {"flash_fwd": lambda: attn.flash_attention_fwd(
+                     q, k, v, causal=True),
+                 "flash_bwd_dq": lambda: attn._flash_bwd_dq_kernel(
+                     q, k, v, do, lse, delta, **kw),
+                 "flash_bwd_dkv": lambda: attn._flash_bwd_dkv_kernel(
+                     q, k, v, do, lse, delta, **kw)}
+        plain = {"flash_fwd": lambda: attn._flash_plain(q, k, v, **kw),
+                 "flash_bwd_dq": lambda: attn._bwd_dq_plain(
+                     q, k, v, do, lse, delta, block_q=64, block_k=64, **kw),
+                 "flash_bwd_dkv": lambda: attn._bwd_dkv_plain(
+                     q, k, v, do, lse, delta, block_q=64, block_k=64, **kw)}
+        q4, k4, v4 = (t.view(b, h, s, d).detach().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)
+        sdpa_fwd_bwd = lambda: torch.autograd.grad(
+            sdpa(), (q4, k4, v4), do.view(b, h, s, d))
+        sdpa_fwd_ms = timing.time_ms(sdpa, 50)
+        library = {"flash_fwd": (sdpa_fwd_ms, "torch SDPA forward, f32")}
+        if len(names) == 3:
+            bwd_ms = timing.time_ms(sdpa_fwd_bwd, 50) - sdpa_fwd_ms
+            for name in KERNELS[1:]:
+                library[name] = (bwd_ms, "torch SDPA backward, f32 (dq, dk "
+                                 "and dv together)")
+        live = _live_pairs(bh, s, s, True)
+        n, stats = bh * s * d, bh * s * 4
+        flops = {"flash_fwd": 4 * live * d, "flash_bwd_dq": 6 * live * d,
+                 "flash_bwd_dkv": 8 * live * d}
+        nbytes = {"flash_fwd": 4 * n * 4 + stats,
+                  "flash_bwd_dq": 5 * n * 4 + 2 * stats,
+                  "flash_bwd_dkv": 6 * n * 4 + 2 * stats}
+        group = []
+        for name in names:
+            ms = timing.time_ms(calls[name], 100)
+            plain_ms = timing.time_ms(plain[name], 10)
+            entry = _entry(
+                name, launches[path][name], err[name], ms, plain_ms,
+                _bound(nbytes[name], flops[name], F32_FLOPS_PER_S),
+                library[name][0], flops[name],
+                (attn.fwd_design if name == "flash_fwd" else
+                 attn.bwd_design)(torch.float32), path=path,
+                bound_peak="67 TFLOP/s f32 (CUDA cores) and 3.35 TB/s",
+                tolerance=_tol_fields(torch.float32),
+                err_from="DT's real activations in this run (phase 32)",
+                library=library[name][1],
+                shape={"bh": bh, "s": s, "d": d, "causal": True,
+                       "dtype": "float32"})
+            group.append(entry)
+        entries += group
+
+        def profile(group=group, calls=calls):
+            for e in group:
+                e.update(_launch_profile(calls[e["name"]]))
+        profiles.append(profile)
+    return entries, lambda: [p() for p in profiles]
+
+
+def phase_rllib_dt(smi):
+    """``cartpole-dt`` as the repo ships it: DT on the expert dataset (phase
+    28's file), context 8, minibatch 128 x 25 updates an iteration, lr
+    1e-3, seed 0, the learner in the driver on the card; attention through
+    the three f32 flash kernels at D 32, S 24. Returns (the DT path's kernel
+    rows, a function adding their profiler fields, a function profiling
+    one update)."""
+    from ray_tpu_torch.rllib.dt import DTLearner, DTModule
+    from ray_tpu_torch.rllib.run_regression import build_algorithm
+
+    spec = _tuned_example(RLLIB2["dt"])
+    stop = spec["stop"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    algo = build_algorithm(spec)
+    build_s = time.perf_counter() - t0
+    cfg, m = algo.config, algo.module
+    launches = {"dt_train": dict.fromkeys(KERNELS, 0),
+                "dt_act": dict.fromkeys(KERNELS, 0)}
+
+    def counted(path, fn):
+        _zero_launches()
+        out = fn()
+        for name, n in _read_launches().items():
+            launches[path][name] += n
+        return out
+
+    evaluate = lambda: counted("dt_act", algo.evaluate)["evaluation"][
+        "episode_return_mean"]
+    train, algo.train = algo.train, lambda: counted("dt_train", train)
+    iters, best, evals, iter_s, eval_s = _train_to_eval_bar(
+        algo, stop["evaluation_return_mean"], stop["training_iteration"],
+        evaluate)
+    algo.train = train
+    peak = torch.cuda.max_memory_allocated(dev)
+    place, problems = _driver_learner_fields(
+        algo.learner.params, [algo.learner.optimizer], None, dev)
+    # launches around one update and one action, and the activations
+    mb = algo._sample_windows(cfg.minibatch_size)
+    with _capture_dt_attention() as seen:
+        _zero_launches()
+        algo.learner.update(mb)
+        per_update = _read_launches()
+        train_calls = list(seen)
+        seen.clear()
+        algo.start_episode(target_return=100.0)
+        obs = np.random.default_rng(RLLIB2["batch_seed"]).normal(
+            size=(cfg.context_len + 2, m.obs_dim)).astype(np.float32)
+        for o in obs[:-1]:
+            algo.compute_single_action(o)
+            algo.observe_reward(1.0)
+        seen.clear()
+        _zero_launches()
+        algo.compute_single_action(obs[-1])
+        per_action = _read_launches()
+        act_calls = list(seen)
+    act_rows = {"dt_train": _dt_activation_rows(train_calls, "update"),
+                "dt_act": _dt_activation_rows(act_calls, "action")}
+    weights = algo.learner.get_weights()
+    opt_state = algo.learner.get_optimizer_state()
+    d = cfg.model["d_model"]
+
+    def run(dv):
+        module = DTModule(m.obs_dim, m.num_actions, cfg.context_len,
+                          d_model=d, n_layer=cfg.model["n_layer"],
+                          n_head=cfg.model["n_head"],
+                          max_timestep=cfg.max_timestep, device=dv)
+        module.set_state(weights)
+        learner = DTLearner(module, cfg)
+        learner.set_optimizer_state(copy.deepcopy(opt_state))
+        metrics = learner.update(mb)
+        state = module.get_state()
+        # the key bias: softmax does not see it, its gradient is rounding
+        # noise, whose moments Adam divides: steps of up to lr that differ
+        # between the devices
+        for i in range(cfg.model["n_layer"]):
+            b = state.pop(f"attn_qkv_{i}.bias")
+            state[f"attn_qkv_{i}.bias[q,v]"] = np.concatenate(
+                [b[:d], b[2 * d:]])
+            state[f"attn_qkv_{i}.bias[k]"] = b[d:2 * d]
+        return metrics, state
+
+    # kernel path (card) against plain path (CPU): the f32 kernels' TOLS
+    f32_atol, f32_rtol = TOLS[torch.float32]
+    cuda_cpu = _cuda_vs_cpu(run, f32_rtol, f32_atol,
+                            apart=(".bias[k]", 2 * cfg.lr * (1 + 1e-4)))
+    timesteps = algo._timesteps
+    algo.stop()
+    h = cfg.model["n_head"]
+    shapes = {"train": (cfg.minibatch_size, h, 3 * cfg.context_len, d // h),
+              "act": (1, h, 3 * cfg.context_len, d // h)}
+    train_s = sum(iter_s)
+    row = {"config": f"{RLLIB2['dt']} (ray_tpu_torch/rllib/tuned_examples)",
+           "bar": stop["evaluation_return_mean"],
+           "budget": stop["training_iteration"], "iterations": iters,
+           "best_evaluation": best, "evaluations": evals,
+           "timesteps": timesteps, "samples_per_s": timesteps / train_s,
+           "train_s": train_s, "iteration_s": iter_s, "evaluate_s": eval_s,
+           "build_s": build_s, "launches": launches,
+           "launches_per_update": per_update,
+           "launches_per_action": per_action,
+           "real_activations": act_rows, "cuda_vs_cpu_update": cuda_cpu,
+           "cuda_vs_cpu_limit": "the f32 kernels' TOLS: the card runs the "
+                                "flash kernels, the CPU their plain versions",
+           "learner_peak_memory_bytes": peak, **place,
+           "device_name": torch.cuda.get_device_name(dev),
+           "nvidia_smi": smi}
+    emit("rllib_dt", **row, note="each train() (25 updates) then a greedy "
+         "return-conditioned evaluate() in the driver until the "
+         "evaluation return reaches the bar; launches read around "
+         "training and evaluation apart")
+    if best < stop["evaluation_return_mean"]:
+        problems.append(f"best evaluation {best} below the bar in {iters} "
+                        "iterations")
+    n_layer = cfg.model["n_layer"]
+    if per_update != dict.fromkeys(KERNELS, n_layer):
+        problems.append(f"launches per update {per_update}")
+    if per_action != {"flash_fwd": n_layer, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0}:
+        problems.append(f"launches per action {per_action}")
+    bad = [r["call"] for rs in act_rows.values() for r in rs if not r["ok"]]
+    if bad or len(act_rows["dt_train"]) != n_layer or any(
+            "do" not in c for c in train_calls):
+        problems.append(f"kernels vs plain on DT's activations: {bad}")
+    if not cuda_cpu["agree"]:
+        problems.append(f"CUDA vs CPU update: {cuda_cpu}")
+    if problems:
+        raise AssertionError("rllib_dt: " + "; ".join(problems))
+    entries, kernel_profile = _dt_kernel_rows(shapes, launches, act_rows)
+    learner = algo.learner
+    return entries, kernel_profile, lambda: _update_profile(learner, mb)
+
+
 # phase 26: ring attention's blocks at GPT-2's training shape, bf16, the
 # sequence in 4 chunks of 256 (numpy seed 26)
 RING = {"b": 16, "h": 12, "s": 1024, "d": 64, "n": 4, "seed": 26}
@@ -3303,10 +4085,11 @@ def phase_parallel_train(bf16_losses, bf16_step_ms, moe_train,
         "pp_step_ms": fields["pp"]["step_ms_median_after_first"]}
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the bf16 tensor-core peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    operations over the peak of their type (bf16 on the tensor cores unless
+    another is given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -3679,9 +4462,23 @@ def main() -> int:
     smi = timed("device", phase_device)
     timed("build", phase_build)
     # the RLlib phases run before any profiler session of this process
-    # (timing.py): their learners' updates are many small launches
+    # (timing.py): their learners' updates are many small launches, and
+    # phases 28-32 profile one update each only after phase 25
+    profiles = timed("rllib_offline", phase_rllib_offline, smi)
+    profiles["qmix_update"] = timed("rllib_qmix", phase_rllib_qmix, smi)
+    profiles["r2d2_update"] = timed("rllib_r2d2", phase_rllib_r2d2, smi)
+    profiles["dreamerv3_update"] = timed("rllib_dreamerv3",
+                                         phase_rllib_dreamerv3, smi)
+    dt_entries, dt_kernel_profile, profiles["dt_update"] = timed(
+        "rllib_dt", phase_rllib_dt, smi)
     timed("rllib_ppo", phase_rllib_ppo, smi)
     timed("rllib_impala_group", phase_rllib_impala_group, smi)
+    emit("rllib_update_profiles", **{name: profile() for name, profile in
+                                     profiles.items()},
+         note="one update of each learner of phases 28-32 on the card: ms "
+              "by CUDA events (median of 3), then its kernels' busy ms, "
+              "launches and idle share from the profiler")
+    dt_kernel_profile()
     timed("kernel_vs_plain", phase_kernel_vs_plain)
     timed("bwd_kernel_vs_plain", phase_bwd_kernel_vs_plain)
     timed("serve_f32", phase_serve_f32)
@@ -3721,6 +4518,7 @@ def main() -> int:
     vit_entries = [e for e in kernels if e["path"] == "vit_train"]
     kernels += _tune_entries(vit_entries, tune_launches)
     kernels += _predict_entries(vit_entries, predict_launches)
+    kernels += dt_entries
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("seconds", **seconds)
     print(smi, flush=True)

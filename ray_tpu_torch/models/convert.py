@@ -1,7 +1,8 @@
 """Weight bridge: the Flax GPT-2, Llama, ViT, ResNet and Switch-MoE LM
 parameter trees to the torch ``state_dict``s, and optax's AdamW state to
-torch's; and RLlib's MLP modules (actor-critic, dueling Q, continuous
-actor and critics, SAC's twin Q towers).
+torch's; and RLlib's modules (actor-critic, dueling Q, continuous actor
+and critics, SAC's twin Q towers, the Decision Transformer, QMIX's agent
+net and mixer, R2D2's LSTM Q net and DreamerV3's nets).
 
 The trees hold numpy arrays (``jax.tree.map(np.asarray, tree)`` on the JAX
 side), so this module needs neither JAX nor the JAX package. Dense
@@ -288,3 +289,78 @@ def sac_params_from_jax(q_params: Mapping[str, Any], log_alpha
     ``q1_out``, ``q2_fc_i``, ``q2_out``, the temperature ``log_alpha`` as a
     0-d tensor) from the flax ``q_params`` tree and ``log_alpha``."""
     return _mlp(q_params), _t(log_alpha).reshape(())
+
+
+def dt_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for ``ray_tpu_torch.rllib.dt.DTNet`` from its flax tree:
+    Dense layers by name, the two ``Embed`` tables (``embedding`` ->
+    ``weight``) and the LayerNorms (``scale`` -> ``weight``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf in tree.items():
+        if "embedding" in leaf:
+            sd[f"{name}.weight"] = _t(leaf["embedding"])
+        elif "scale" in leaf:
+            _norm(sd, name, leaf)
+        else:
+            _dense(sd, name, leaf)
+    return sd
+
+
+def qmix_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for ``QMixModule``'s net from the tree ``{"agent": ...,
+    "mixer": ...}``: names ``agent.fc_0.weight``, ``mixer.hyper_w1.bias``,
+    ..."""
+    return {**_mlp(tree["agent"], "agent."), **_mlp(tree["mixer"], "mixer.")}
+
+
+_LSTM_GATES = ("i", "f", "g", "o")
+
+
+def r2d2_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for ``ray_tpu_torch.rllib.r2d2.LSTMQNet``: ``torso`` and
+    ``q`` as Dense layers; flax's ``OptimizedLSTMCell`` (per gate g in i, f,
+    g, o an input kernel ``ig`` without bias and a hidden kernel ``hg`` with
+    one) becomes ``lstm``, one (4H, D + H) product of ``[x, h]``: per gate
+    its input and hidden kernels stacked, gates in flax's order."""
+    lstm = tree["lstm"]
+    kernel = np.concatenate([
+        np.concatenate([np.asarray(lstm[f"i{g}"]["kernel"]),
+                        np.asarray(lstm[f"h{g}"]["kernel"])], axis=0)
+        for g in _LSTM_GATES], axis=1)
+    sd = _mlp({k: tree[k] for k in ("torso", "q")})
+    sd["lstm.weight"] = _t(kernel).T.contiguous()
+    sd["lstm.bias"] = _t(np.concatenate([np.asarray(lstm[f"h{g}"]["bias"])
+                                         for g in _LSTM_GATES]))
+    return sd
+
+
+def _gru(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """flax ``nn.GRUCell`` (``ir``, ``iz``, ``in`` with biases; ``hr``,
+    ``hz`` without; ``hn`` with) as ``dreamerv3.GRUCell``'s ``ih``, ``hh``
+    and ``hn_bias``."""
+    cat = lambda names, leaf: np.concatenate(
+        [np.asarray(tree[n][leaf]) for n in names], axis=-1)
+    return {f"{prefix}ih.weight": _t(cat(("ir", "iz", "in"), "kernel")).T
+            .contiguous(),
+            f"{prefix}ih.bias": _t(cat(("ir", "iz", "in"), "bias")),
+            f"{prefix}hh.weight": _t(cat(("hr", "hz", "hn"), "kernel")).T
+            .contiguous(),
+            f"{prefix}hn_bias": _t(tree["hn"]["bias"])}
+
+
+def dreamerv3_params_from_jax(params: Mapping[str, Any], actor_params,
+                              critic_params) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``DreamerV3Module``'s state ``{"wm", "actor", "critic"}`` (each a
+    state dict) from the JAX module's ``params``, ``actor_params`` and
+    ``critic_params``, each net's variables ``{"params": {...}}`` as flax's
+    ``init`` returns them: the MLPs' ``Dense_0..2`` by name, the GRU through
+    ``_gru``."""
+    wm: Dict[str, torch.Tensor] = {}
+    for name, variables in params.items():
+        tree = variables["params"]
+        if name == "gru":
+            wm.update(_gru(tree["GRUCell_0"], "gru."))
+        else:
+            wm.update(_mlp(tree, f"{name}."))
+    return {"wm": wm, "actor": _mlp(actor_params["params"]),
+            "critic": _mlp(critic_params["params"])}

@@ -1,8 +1,9 @@
 """ray_tpu_torch.rllib — reinforcement learning (ray parity: rllib/).
 
 The learner runs on the CUDA card (``num_gpus_per_learner``, default 1;
-0 learns on the CPU), the env runners on CPUs. Not ported yet: the
-offline algorithms (BC, CQL, MARWIL), DT, R2D2, QMIX and DreamerV3.
+0 learns on the CPU), the env runners on CPUs. The offline algorithms
+(BC, MARWIL, CQL, DT) and DreamerV3 learn in the driver; DT attends
+through the port's flash kernels.
 """
 
 from ray_tpu_torch.rllib.algorithm import (
@@ -42,7 +43,11 @@ from ray_tpu_torch.rllib.learner import (
     TD3Learner,
     vtrace,
 )
+from ray_tpu_torch.rllib.dreamerv3 import DreamerV3, DreamerV3Config
 from ray_tpu_torch.rllib.external_env import PolicyClient, PolicyServerRunner
+from ray_tpu_torch.rllib.dt import DT, DTConfig
+from ray_tpu_torch.rllib.qmix import QMIX, QMIXConfig, TwoStepCoopGame
+from ray_tpu_torch.rllib.r2d2 import R2D2, R2D2Config
 from ray_tpu_torch.rllib.replay_buffer import (
     PrioritizedReplayBuffer,
     ReplayBuffer,
@@ -54,6 +59,19 @@ from ray_tpu_torch.rllib.multi_agent import (
     MultiAgentEnv,
     MultiAgentEnvRunner,
     MultiAgentPPO,
+)
+from ray_tpu_torch.rllib.offline import (
+    BC,
+    BCConfig,
+    BCLearner,
+    CQL,
+    CQLConfig,
+    CQLLearner,
+    MARWIL,
+    MARWILConfig,
+    MARWILLearner,
+    read_json,
+    write_json,
 )
 from ray_tpu_torch.rllib.sample_batch import SampleBatch, compute_gae
 
@@ -82,6 +100,26 @@ __all__ = [
     "PolicyClient",
     "PolicyServerRunner",
     "DQNLearner",
+    "DT",
+    "DTConfig",
+    "DreamerV3",
+    "DreamerV3Config",
+    "QMIX",
+    "QMIXConfig",
+    "R2D2",
+    "R2D2Config",
+    "TwoStepCoopGame",
+    "BC",
+    "BCConfig",
+    "BCLearner",
+    "CQL",
+    "CQLConfig",
+    "CQLLearner",
+    "MARWIL",
+    "MARWILConfig",
+    "MARWILLearner",
+    "read_json",
+    "write_json",
     "EnvRunner",
     "IMPALA",
     "IMPALAConfig",

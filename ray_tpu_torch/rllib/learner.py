@@ -83,6 +83,11 @@ def _polyak(target: nn.Module, online: nn.Module, tau: float):
             t.copy_((1.0 - tau) * t + tau * o)
 
 
+def _x32(v) -> np.ndarray:
+    a = np.asarray(v)
+    return a.astype(np.float32) if a.dtype == np.float64 else a
+
+
 def _floats(metrics: Tensors) -> Dict[str, float]:
     return {k: float(v) for k, v in metrics.items()}
 
@@ -113,7 +118,9 @@ class Learner:
         self.optimizer = _adam(self.params, config.lr)
 
     def _tensors(self, batch, keys=None, skip=()) -> Tensors:
-        return {k: torch.tensor(np.asarray(v), device=self.device)
+        """The batch's columns on the learner's device; f64 columns (JSON
+        read back) become f32, as ``jnp.asarray`` makes them."""
+        return {k: torch.tensor(_x32(v), device=self.device)
                 for k, v in batch.items()
                 if (keys is None or k in keys) and k not in skip}
 
@@ -372,7 +379,33 @@ class APPOLearner(_VtraceLearner):
         return total, (pi_loss, vf_loss, entropy)
 
 
-class DQNLearner(Learner):
+class TargetNetLearner(Learner):
+    """A learner with a frozen copy of its net for TD targets: synced on
+    demand, and carried through checkpoints on the optimizer-state channel
+    (a fresh-init target after a restore would feed garbage TD targets
+    until the next sync). DQN, CQL, QMIX and R2D2 share it."""
+
+    def __init__(self, module, config):
+        super().__init__(module, config)
+        self.target_net = _frozen_copy(module.net)
+
+    def sync_target(self):
+        self.target_net.load_state_dict(self.module.net.state_dict())
+
+    def get_optimizer_state(self):
+        return {"opt": _opt_state(self.optimizer),
+                "target_params": get_state(self.target_net)}
+
+    def set_optimizer_state(self, state):
+        if isinstance(state, dict) and "target_params" in state:
+            super().set_optimizer_state(state["opt"])
+            set_state(self.target_net, state["target_params"])
+        else:  # None, or a raw optimizer state with no recorded target
+            super().set_optimizer_state(state)
+            self.sync_target()
+
+
+class DQNLearner(TargetNetLearner):
     """DQN with the reference's rainbow-family knobs (ray parity:
     rllib/algorithms/dqn — ``double_q``, ``dueling`` (module-side),
     ``n_step`` (buffer-side; consumed here via ``nstep_discount``), and
@@ -382,7 +415,6 @@ class DQNLearner(Learner):
     def __init__(self, module: RLModule, config):
         super().__init__(module, config)
         self.double_q = bool(getattr(config, "double_q", False))
-        self.target_net = _frozen_copy(module.net)
 
     def _loss(self, mb):
         net = self.module.net
@@ -417,24 +449,6 @@ class DQNLearner(Learner):
         self.last_td_abs = td_abs.cpu().numpy()
         return _floats({"loss": loss.detach(),
                         "mean_td_error": td_abs.mean()})
-
-    def sync_target(self):
-        self.target_net.load_state_dict(self.module.net.state_dict())
-
-    # target net rides the optimizer-state channel so checkpoints restore
-    # it (same pattern as TD3/SAC; a fresh-init target after restore would
-    # feed garbage TD targets until the next sync)
-    def get_optimizer_state(self):
-        return {"opt": _opt_state(self.optimizer),
-                "target_params": get_state(self.target_net)}
-
-    def set_optimizer_state(self, state):
-        if isinstance(state, dict) and "target_params" in state:
-            super().set_optimizer_state(state["opt"])
-            set_state(self.target_net, state["target_params"])
-        else:  # None, or a raw optimizer state with no recorded target
-            super().set_optimizer_state(state)
-            self.sync_target()
 
 
 class TD3Learner(Learner):

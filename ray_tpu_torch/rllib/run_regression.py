@@ -63,6 +63,56 @@ def load_experiments(directory: str, select: str = "") -> Dict[str, dict]:
     return out
 
 
+_DATASETS: Dict[str, str] = {}
+
+
+def offline_dataset(kind: str, num_gpus_per_learner=None) -> str:
+    """Generate (once per harness run) a shared offline dataset for the
+    offline algorithms' tuned examples (ray parity: the data files
+    shipped under rllib/tuned_examples/ for MARWIL/CQL/DT). The
+    ``cartpole_expert`` dataset is a briefly-trained PPO expert's
+    rollouts with rewards/dones/next_obs: 8 iterations of PPO, its learner
+    where ``num_gpus_per_learner`` puts it (the card by default), then 2 x
+    512 steps from its runner. The file goes under a fresh temporary
+    directory."""
+    if kind in _DATASETS:
+        return _DATASETS[kind]
+    if kind != "cartpole_expert":
+        raise ValueError(f"unknown offline dataset {kind!r}")
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib.offline import write_json
+
+    config = (
+        PPOConfig()
+        .environment("CartPole-native")
+        .env_runners(num_env_runners=1, rollout_fragment_length=512)
+        .training(num_epochs=6, minibatch_size=128)
+        .debugging(seed=0)
+    )
+    if num_gpus_per_learner is not None:
+        config = config.learners(num_gpus_per_learner=num_gpus_per_learner)
+    expert = config.build()
+    try:
+        for _ in range(8):
+            expert.train()
+        recorded = rt.get(
+            [expert.runners[0].sample.remote(512) for _ in range(2)],
+            timeout=300,
+        )
+        path = write_json(
+            recorded,
+            os.path.join(tempfile.mkdtemp(prefix="rllib_regression_"),
+                         "expert.jsonl"),
+        )
+    finally:
+        expert.stop()
+    _DATASETS[kind] = path
+    return path
+
+
 def build_algorithm(spec: dict, num_gpus_per_learner=None):
     import ray_tpu_torch.rllib as rllib
 
@@ -71,6 +121,9 @@ def build_algorithm(spec: dict, num_gpus_per_learner=None):
     if config_cls is None:
         raise ValueError(f"unknown algorithm {algo_name!r}")
     config = config_cls().environment(spec["env"])
+    if spec.get("offline_dataset"):
+        config = config.offline_data(input_=offline_dataset(
+            spec["offline_dataset"], num_gpus_per_learner))
     for section, kwargs in (spec.get("config") or {}).items():
         method = getattr(config, section, None)
         if method is None or not callable(method):
@@ -94,8 +147,8 @@ def build_algorithm(spec: dict, num_gpus_per_learner=None):
 def run_experiment(name: str, spec: dict, num_gpus_per_learner=None) -> dict:
     stop = spec.get("stop") or {}
     threshold = stop.get("episode_return_mean")
-    # algorithms judged by a post-training greedy EVALUATION return
-    # (TD3/DDPG here) set stop.evaluation_return_mean instead
+    # offline algorithms (MARWIL/CQL/DT) never emit training returns —
+    # their pass bar is a post-training greedy EVALUATION return
     eval_threshold = stop.get("evaluation_return_mean")
     if threshold is None and eval_threshold is None:
         # a missing/misspelled threshold must not silently auto-pass:

@@ -581,11 +581,13 @@ def test_tuned_examples_are_the_ported_algorithms():
     )
 
     experiments = load_experiments(TUNED_EXAMPLES_DIR)
-    assert sorted(experiments) == [
-        "cartpole-a2c", "cartpole-appo", "cartpole-ars", "cartpole-dqn",
-        "cartpole-es", "cartpole-impala-multilearner", "cartpole-pg",
-        "cartpole-ppo", "cartpole-sac", "reacher-ddpg", "reacher-td3"]
     reference = load_experiments(str(REPO / "ray_tpu/rllib/tuned_examples"))
+    assert sorted(experiments) == sorted(reference) == [
+        "cartpole-a2c", "cartpole-appo", "cartpole-ars", "cartpole-cql",
+        "cartpole-dqn", "cartpole-dreamerv3", "cartpole-dt", "cartpole-es",
+        "cartpole-impala-multilearner", "cartpole-marwil", "cartpole-pg",
+        "cartpole-ppo", "cartpole-sac", "memorychain-r2d2", "reacher-ddpg",
+        "reacher-td3", "twostep-qmix"]
     for name, spec in experiments.items():
         if name == "cartpole-impala-multilearner":
             # its two learners move from CPUs to half a card each
@@ -596,14 +598,15 @@ def test_tuned_examples_are_the_ported_algorithms():
 
 def test_port_rllib_modules_import_no_jax_and_nothing_of_ray_tpu():
     """The AST walk of ``tests/test_torch_serve_llm.py`` takes every
-    ``ray_tpu_torch/**/*.py``; here it is run on this slice's modules
-    alone: the 14 of the slice table and the weight bridge."""
+    ``ray_tpu_torch/**/*.py``; here it is run on RLlib's modules alone:
+    the 14 of the first RLlib slice, the 5 of the second (``dreamerv3``,
+    ``dt``, ``offline``, ``qmix``, ``r2d2``) and the weight bridge."""
     files = sorted((REPO / "ray_tpu_torch" / "rllib").rglob("*.py"))
     assert [f.stem for f in files] == [
-        "__init__", "algorithm", "connectors", "env", "env_runner",
-        "evolution", "external_env", "learner", "learner_group",
-        "multi_agent", "replay_buffer", "rl_module", "run_regression",
-        "sample_batch"]
+        "__init__", "algorithm", "connectors", "dreamerv3", "dt", "env",
+        "env_runner", "evolution", "external_env", "learner",
+        "learner_group", "multi_agent", "offline", "qmix", "r2d2",
+        "replay_buffer", "rl_module", "run_regression", "sample_batch"]
     files += [REPO / "ray_tpu_torch" / "models" / "convert.py",
               REPO / "chip_smoke.py"]
     for f in files:

@@ -1,7 +1,8 @@
 """The reference's RL cases, carried over to the port on the CPU.
 
-The cases of ``tests/test_rllib.py`` (but ``test_bc_clones_expert``: BC is
-offline RL, not ported yet) and ``tests/test_rllib_rainbow.py`` run through
+The cases of ``tests/test_rllib.py`` (but ``test_bc_clones_expert``, which
+``tests/test_torch_rllib_offline.py`` carries with the rest of offline RL)
+and ``tests/test_rllib_rainbow.py`` run through
 ``ray_tpu_torch.rllib`` at the reference's seeds and bars, with the learner
 on the CPU (``num_gpus_per_learner=0``). One port cluster serves the
 module; the reference's slow marks are kept.

@@ -409,7 +409,7 @@ def test_policy_client_errors_are_http_errors(cluster):
 
 def test_all_configs_load_and_declare_thresholds():
     """Every tuned example the port ships parses, names a known algorithm
-    config and declares a pass bar: the 11 of the ported algorithms."""
+    config and declares a pass bar: the reference's 17."""
     import ray_tpu_torch.rllib as rllib
     from ray_tpu_torch.rllib.run_regression import (
         TUNED_EXAMPLES_DIR,
@@ -417,7 +417,7 @@ def test_all_configs_load_and_declare_thresholds():
     )
 
     experiments = load_experiments(TUNED_EXAMPLES_DIR)
-    assert len(experiments) == 11, sorted(experiments)
+    assert len(experiments) == 17, sorted(experiments)
     for name, spec in experiments.items():
         assert getattr(rllib, f"{spec['algorithm']}Config", None), name
         stop = spec.get("stop") or {}
