@@ -406,6 +406,44 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    as a yardstick, the bound against the f32 CUDA-core peak (67 TFLOP/s)
    and HBM, the errors from the real activations, and device ms.
 
+33. cluster_cli (after phase 23): the port run as a cluster through the
+   commands a user types (``tools/cluster_runs.drive``), each a subprocess
+   of ``python -m ray_tpu_torch`` under a temporary ``HOME``: ``up`` of a
+   YAML whose head has 4 CPUs and ``GPU: 0`` and whose one worker node type
+   ``gpu_node`` ({"GPU": 1, "CPU": 4}, ``min_workers`` 0, ``max_workers``
+   1, 6 s idle timeout) the autoscaler monitor launches through
+   ``FakeGpuNodeProvider``; ``status``; ``submit`` of ``python -m
+   ray_tpu_torch.tools.cluster_runs job``, whose driver (on the head, never
+   touching CUDA) fits ``TorchTrainer(ScalingConfig(num_workers=1,
+   use_gpu=True))`` over NCCL: phase 8's configuration, seed-0 weights,
+   batch and bf16 for 4 steps, its mesh ``create_hybrid_mesh({"fsdp": 1},
+   {"data": 1})`` and its state ``shard_train_state(fsdp=True)``; then
+   ``job logs``, the idle node's teardown, ``microbenchmark --small``
+   against the head (its rows printed) and ``down``. Checks: ``status``
+   shows one node and no GPU; the gang's placement group made the monitor
+   launch ``gpu_node`` and the worker trained there (its node id the
+   launched node's, not the head's); the job SUCCEEDED and its logs carry
+   each loss; the worker's launch counts, read in the worker, are 12 a step
+   of each kernel with no plain-version call; the losses within 1e-2 of
+   phase 8's first 4 (the line says whether they are equal to the bit);
+   the idle node is torn down; ``down`` leaves no process of the session.
+   Prints ``up`` s, submit to the node's registration s, gang start s, the
+   worker's step ms beside phase 8's, job wall s and teardown s.
+34. serve_autoscale (after phase 33): phase 19's app (GPT-2-124M's
+   ``LLMServer`` deployment, bf16, phase 6's weights) in its own cluster
+   with ``autoscaling_config`` 1 to 2 replicas, ``target_ongoing_requests``
+   2 and ``ray_actor_options={"num_gpus": 0.5}``, driven by
+   ``serve.load_harness.run_load`` through the proxy: 8 connections, phase
+   6's 4 prompts (32-512 tokens, 16 new each) in turn at 8 requests a
+   second for 15 s, then windows of 5 s until both replicas have served.
+   Checks: ``running_replicas`` 1 before the load and 2 after; both
+   replicas (separate processes on the card) launched ``flash_fwd``,
+   exactly 12 per forward and no backward, read from each replica's actor;
+   every answer 200 and equal to phase 6's in-process greedy tokens for
+   its prompt; no process left. Prints ``run_load``'s TTFT and latency
+   percentiles, tokens/s, the time to scale up and each replica's
+   launches.
+
 Every phase raises on a failed check; no failure is caught.
 
 The ``kernels`` line comes after phase 27: phase 15's entries (with the
@@ -416,7 +454,10 @@ and Llama TP paths (which carry the times of the shapes they run at),
 then the ViT-in-a-trial path's rows (phase 15's times at ViT-B/16's shape
 with the launches the trials' workers counted), the batch-prediction
 path's ``flash_fwd`` row (the same times, with the launches the
-predictor's actors counted) and phase 32's DT rows. Then one line with
+predictor's actors counted), phase 32's DT rows, and the rows of phases
+33-34: the training shape's with the cluster job's worker's launches
+(``cluster_job_worker``) and the serving shape's ``flash_fwd`` with the
+autoscaled replicas' (``serve_autoscaled_replicas``). Then one line with
 each phase's seconds. The last two lines are the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
@@ -1679,37 +1720,14 @@ def _http_stream(port, tokens, max_tokens):
     return toks, t0, stamps
 
 
-def _session_processes(session_dir):
-    """Pids of the processes of one port session: the GCS, raylet and node
-    agent name its session dir in their argv, its workers carry it in
-    ``RAY_TPU_TORCH_SESSION_DIR``. Another session's processes on the same
-    host are not this phase's."""
-    import os
-
-    mark, env_mark = session_dir.encode(), \
-        b"RAY_TPU_TORCH_SESSION_DIR=" + session_dir.encode()
-    found = []
-    for pid in os.listdir("/proc"):
-        if not pid.isdigit() or int(pid) == os.getpid():
-            continue
-        try:
-            with open(f"/proc/{pid}/cmdline", "rb") as f:
-                argv = f.read()
-            with open(f"/proc/{pid}/environ", "rb") as f:
-                env = f.read().split(b"\0")
-        except OSError:
-            continue
-        if mark in argv or env_mark in env:
-            found.append(int(pid))
-    return found
-
-
 def _wait_for_no_processes(session_dir):
     """The session's processes left 30 s after its shutdown."""
+    from ray_tpu_torch.tools.cluster_runs import session_processes
+
     deadline = time.time() + 30
-    while time.time() < deadline and _session_processes(session_dir):
+    while time.time() < deadline and session_processes(session_dir):
         time.sleep(0.5)
-    return _session_processes(session_dir)
+    return session_processes(session_dir)
 
 
 def _card_memory_of(pid):
@@ -1785,12 +1803,14 @@ def phase_serve_run(smi, bf16_streams):
     finally:
         serve.shutdown()
         rt.shutdown()
+    from ray_tpu_torch.tools.cluster_runs import session_processes
+
     deadline = time.time() + 30
     while time.time() < deadline and (
-            _session_processes(session_dir)
+            session_processes(session_dir)
             or _card_memory_of(replica["pid"]) is not None):
         time.sleep(0.5)
-    left = _session_processes(session_dir)
+    left = session_processes(session_dir)
     replica_mib_after = _card_memory_of(replica["pid"])
 
     streams = [r[0] for r in results]
@@ -2798,7 +2818,9 @@ def _card_fds(pid):
 def _on_card(session_dir, allowed):
     """Session processes other than ``allowed`` that have the card open:
     {pid: its open files on the card}."""
-    return {pid: n for pid in _session_processes(session_dir)
+    from ray_tpu_torch.tools.cluster_runs import session_processes
+
+    return {pid: n for pid in session_processes(session_dir)
             if pid not in allowed and (n := _card_fds(pid))}
 
 
@@ -3828,6 +3850,315 @@ def phase_rllib_dt(smi):
     return entries, kernel_profile, lambda: _update_profile(learner, mb)
 
 
+# phase 33: the port run as a cluster, through the commands a user types
+# (``tools/cluster_runs.py``): a head of 4 CPUs and no GPU, one worker node
+# type ``gpu_node`` ({"GPU": 1, "CPU": 4}, 0 to 1 of it, 6 s idle), and a
+# submitted job whose TorchTrainer gang trains phase 8's configuration,
+# weights and batch for 4 steps over a hybrid mesh on the launched node
+CLUSTER_JOB = {"model": "gpt2_124m", "device": "cuda", "use_gpu": True,
+               "workers": 1, "steps": 4}
+
+
+def phase_cluster_cli(smi, bf16_losses, inproc_step_ms):
+    """``python -m ray_tpu_torch up/status/submit/job logs/microbenchmark/
+    down`` as subprocesses under a temporary ``HOME``: the autoscaler
+    launches ``gpu_node`` for the submitted job's gang, the gang trains
+    there through the three kernels, the idle node is torn down and
+    ``down`` leaves no process of the session. Returns the worker's launch
+    counts."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.tools import cluster_runs, train_runs
+
+    workdir = tempfile.mkdtemp(prefix="cluster_cli_")
+    config = dict(CLUSTER_JOB, batch=train_runs.BATCH, seq=train_runs.SEQ)
+    try:
+        out = cluster_runs.drive(workdir, config, {"GPU": 1, "CPU": 4},
+                                 name="chip-smoke", job_timeout_s=600)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    steps = CLUSTER_JOB["steps"]
+    problems = cluster_runs.problems(out, steps, GPT2_124M["n_layer"])
+    reps = (out.get("job") or {}).get("steps") or []
+    losses = [r["loss"] for r in reps]
+    step_ms = [r["step_ms"] for r in reps]
+    rows = [ln for ln in out.get("microbenchmark", "").splitlines()
+            if ln.strip()]
+    card = smi.split(",")[0].strip()
+    diff = max((abs(a - b) for a, b in zip(losses, bf16_losses)),
+               default=None)
+    emit("cluster_cli",
+         config="gpt2_124m attention=flash loss_chunks=8 bf16/f32-params "
+                "AdamW, TorchTrainer(ScalingConfig(num_workers=1, "
+                "use_gpu=True)) over create_hybrid_mesh({'fsdp': 1}, "
+                "{'data': 1}), shard_train_state(fsdp=True)",
+         batch=train_runs.BATCH, seq=train_runs.SEQ, up_s=out.get("up_s"),
+         submit_to_node_s=out.get("submit_to_node_s"),
+         gang_start_s=out.get("gang_start_s"),
+         worker_step_ms=statistics.median(step_ms[1:]) if step_ms else None,
+         worker_step_ms_each=step_ms, inproc_step_ms=inproc_step_ms,
+         job_wall_s=out.get("job_wall_s"), teardown_s=out.get("teardown_s"),
+         down_s=out.get("down_s"), losses=losses,
+         phase8_losses=bf16_losses[:steps], max_loss_diff_vs_phase8=diff,
+         equal_to_the_bit=losses == bf16_losses[:steps],
+         launches=reps[-1]["launches"] if reps else None,
+         worker_node=reps[0]["node_id"] if reps else None,
+         head_nodes=[n["node_id"] for n in out.get("nodes_before") or []],
+         mesh=reps[0]["mesh"] if reps else None,
+         worker_device_name=reps[0]["device_name"] if reps else None,
+         status=out.get("status"), microbenchmark=rows,
+         microbenchmark_s=out.get("microbenchmark_s"),
+         processes_left=out.get("processes_left"),
+         note="seconds on the host clock: up_s the `up` command; "
+              "submit_to_node_s from starting `submit` to the launched "
+              "node in the GCS's node table; gang_start_s from fit() to "
+              "the worker's loop; job_wall_s submit to its end; "
+              "teardown_s the job's end to the idle node's removal; step "
+              "ms around one step and its float(loss) in the worker")
+    if reps and any(r["device_name"] != card for r in reps):
+        problems.append(f"worker device {reps[0]['device_name']} is not "
+                        f"nvidia-smi's {card!r}")
+    if not (losses and all(math.isfinite(x) for x in losses)
+            and diff is not None and diff <= 1e-2):
+        problems.append(f"losses {losses} vs phase 8's "
+                        f"{bf16_losses[:steps]}")
+    if out.get("microbenchmark_rc") != 0 or not rows:
+        problems.append(f"microbenchmark rc {out.get('microbenchmark_rc')}")
+    if problems:
+        raise AssertionError("cluster_cli: " + "; ".join(problems))
+    return reps[-1]["launches"]
+
+
+# phase 34: phase 19's GPT-2 deployment under load_harness with replica
+# autoscaling: 1 to 2 replicas at half a card each, a target of 2 ongoing
+# requests a replica, 8 connections, phase 6's prompts in turn at 8
+# requests a second for 15 s (more than one replica answers: 5.6 a second
+# on an H100 at 12 offered), then windows of 5 s until the second replica
+# has served (at most 6)
+SERVE_AUTOSCALE = {"target_ongoing": 2, "connections": 8, "rps": 8.0,
+                   "load_s": 15.0, "window_s": 5.0, "max_windows": 6}
+
+
+def _replica_actors(app, deployment):
+    """{replica name: actor} of a deployment, from its controller."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve._common import (SERVE_CONTROLLER_NAME,
+                                             SERVE_NAMESPACE)
+
+    controller = rt.get_actor(SERVE_CONTROLLER_NAME,
+                              namespace=SERVE_NAMESPACE)
+    names = rt.get(controller.get_replica_names.remote(app, deployment),
+                   timeout=60)
+    return {n: rt.get_actor(n, namespace=SERVE_NAMESPACE) for n in names}
+
+
+def _probe_replicas(app, deployment, reset=False):
+    """Each replica's ``probe`` (its own launch counts, forwards, pid and
+    device), asked of its actor directly: counters are per process."""
+    import ray_tpu_torch as rt
+
+    return {name: rt.get(actor.handle_request.remote(
+        "probe", (), {"reset": reset}), timeout=60)
+        for name, actor in _replica_actors(app, deployment).items()}
+
+
+def serve_autoscale(model_kwargs, bind_kwargs, prompts, want, num_gpus,
+                    init_kwargs, load=SERVE_AUTOSCALE):
+    """Deploys ``_probed_llm_server()`` with replica autoscaling (1 to 2,
+    ``ray_actor_options={"num_gpus": num_gpus}``), drives it with
+    ``load_harness.run_load`` over ``prompts`` in turn and holds every
+    answer to ``want`` (the in-process greedy tokens of each prompt).
+    Returns what it saw; the caller checks the rest."""
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.serve.load_harness import run_load
+
+    rt.init(**init_kwargs)
+    session_dir = global_worker.node.session_dir
+    out = {"windows": [], "answers_wrong": [], "scale_up_s": None}
+    try:
+        app = serve.deployment(_probed_llm_server(), name="llm").options(
+            ray_actor_options={"num_gpus": num_gpus},
+            autoscaling_config={
+                "min_replicas": 1, "max_replicas": 2,
+                "target_ongoing_requests": load["target_ongoing"],
+                "upscale_delay_s": 0.5, "downscale_delay_s": 600.0},
+        ).bind(real_model=True, model_kwargs=model_kwargs, **bind_kwargs)
+        t0 = time.perf_counter()
+        serve.run(app, name="auto", route_prefix="/llm")
+        out["replica_start_s"] = time.perf_counter() - t0
+        port = serve.http_port()
+        url = f"http://127.0.0.1:{port}/llm"
+        # a first request: the fresh replica's first forward
+        _http_stream(port, prompts[0], 2)
+        _probe_replicas("auto", "llm", reset=True)
+        status = lambda: serve.status()["auto"]["deployments"]["llm"]
+        out["replicas_before"] = status()["running_replicas"]
+        stop, t_load = threading.Event(), time.perf_counter()
+
+        def watch():
+            while not stop.is_set():
+                if status()["running_replicas"] >= 2 and \
+                        out["scale_up_s"] is None:
+                    out["scale_up_s"] = time.perf_counter() - t_load
+                time.sleep(0.25)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        payloads = [json.dumps({"tokens": p, "max_tokens": len(want[0])})
+                    .encode() for p in prompts]
+        duration = load["load_s"]
+        for _ in range(1 + load["max_windows"]):
+            res = run_load(url, rps=load["rps"], duration_s=duration,
+                           connections=load["connections"], method="POST",
+                           payloads=payloads, keep_bodies=True,
+                           timeout_s=120)
+            for b in res.pop("bodies"):
+                toks = [json.loads(line)["token"]
+                        for line in b["body"].decode().splitlines()
+                        if line.strip()]
+                if b["status"] != 200 or toks != want[b["i"] % len(want)]:
+                    out["answers_wrong"].append(
+                        {"i": b["i"], "status": b["status"], "tokens": toks})
+            res.pop("queue_depth_series", None)
+            out["windows"].append(res)
+            probes = _probe_replicas("auto", "llm")
+            if len(probes) >= 2 and all(p["forwards"] for p in
+                                        probes.values()):
+                break
+            duration = load["window_s"]
+        stop.set()
+        watcher.join()
+        out["load_s"] = time.perf_counter() - t_load
+        out["replicas"] = probes
+        out["status"] = status()
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    out["processes_left"] = _wait_for_no_processes(session_dir)
+    return out
+
+
+def _merge_windows(windows):
+    """The requests, answers, errors and seconds of every window together
+    (each window's percentiles stay its own)."""
+    n = sum(w["requests"] for w in windows)
+    ok = sum(w["ok"] for w in windows)
+    return {"requests": n, "ok": ok,
+            "errors": sum(w["errors"] for w in windows),
+            "wall_s": sum(w["wall_s"] for w in windows)}
+
+
+def phase_serve_autoscale(smi, bf16_streams):
+    """GPT-2-124M's ``LLMServer`` deployment (phase 19's app) with replica
+    autoscaling, driven by ``load_harness.run_load``: it scales from 1 to
+    2 replicas, both launch ``flash_fwd`` and every answer equals phase
+    6's in-process greedy tokens for its prompt. Returns the replicas'
+    summed launch counts."""
+    rng = np.random.default_rng(2)  # phase 6's prompts
+    prompts = [rng.integers(0, 50257, size=n).tolist()
+               for n in (32, 129, 300, 512)]
+    want = [list(s) for s in bf16_streams[:4]]
+    os.environ["RAY_TPU_TORCH_gpu_autodetect"] = "1"  # the raylet's probe
+    try:
+        out = serve_autoscale(
+            dict(attention="flash", dtype=torch.bfloat16, **GPT2_124M),
+            dict(kv_dim=768, page_tokens=16, max_pages=512, max_running=8,
+                 prefix_cache_pages=128),
+            prompts, want, 0.5, dict(num_cpus=4, num_gpus=1))
+    finally:
+        os.environ.pop("RAY_TPU_TORCH_gpu_autodetect", None)
+    reps = out.get("replicas") or {}
+    launches = {k: sum(p["launches"][k] for p in reps.values())
+                for k in KERNELS}
+    total = _merge_windows(out["windows"])
+    tokens = total["ok"] * len(want[0])
+    card = smi.split(",")[0].strip()
+    first = out["windows"][0]
+    emit("serve_autoscale", load=SERVE_AUTOSCALE, prompt_lens=[
+        len(p) for p in prompts], new_tokens=len(want[0]),
+         replica_start_s=out.get("replica_start_s"),
+         scale_up_s=out["scale_up_s"], load_wall_s=out.get("load_s"),
+         windows=len(out["windows"]), requests=total["requests"],
+         ok=total["ok"], errors=total["errors"],
+         tokens_per_s=tokens / total["wall_s"],
+         ttft=first["ttft"], latency=first["latency"],
+         achieved_rps=first["achieved_rps"],
+         peak_inflight=first["peak_inflight"],
+         later_windows=[{k: w[k] for k in ("requests", "ok", "wall_s",
+                                            "achieved_rps", "ttft",
+                                            "latency")}
+                        for w in out["windows"][1:]],
+         replicas={n: {k: p[k] for k in ("pid", "launches", "forwards",
+                                         "device", "device_name", "init_s")}
+                   for n, p in reps.items()},
+         answers_wrong=out["answers_wrong"][:5],
+         n_answers_wrong=len(out["answers_wrong"]),
+         processes_left=out["processes_left"],
+         note="run_load's TTFT and latency (s, host clock, from the "
+              "scheduled send: a request that waits for one of the 8 "
+              "connections counts that wait) over the first window; "
+              "scale_up_s from the load's start to running_replicas 2; "
+              "launches and forwards are each replica's own, zeroed after "
+              "a first request and read after the load")
+    problems = []
+    if out.get("replicas_before") != 1:
+        problems.append(f"{out.get('replicas_before')} replicas before the "
+                        "load")
+    if out["scale_up_s"] is None or len(reps) != 2:
+        problems.append(f"running_replicas never reached 2: "
+                        f"{out.get('status')}")
+    for name, p in reps.items():
+        if not p["launches"]["flash_fwd"] or \
+                p["launches"]["flash_fwd"] != GPT2_124M["n_layer"] \
+                * p["forwards"]:
+            problems.append(f"{name}: flash_fwd {p['launches']} for "
+                            f"{p['forwards']} forwards")
+        if p["launches"]["flash_bwd_dq"] or p["launches"]["flash_bwd_dkv"]:
+            problems.append(f"{name}: backward launches {p['launches']}")
+        if p["device_name"] != card or p["pid"] == os.getpid():
+            problems.append(f"{name}: on {p['device']} in pid {p['pid']}")
+    if len({p["pid"] for p in reps.values()}) != len(reps):
+        problems.append("two replicas in one process")
+    if out["answers_wrong"] or total["ok"] != total["requests"] or \
+            not total["ok"]:
+        problems.append(f"{len(out['answers_wrong'])} wrong answers, "
+                        f"{total['ok']} of {total['requests']} ok: "
+                        f"{out['answers_wrong'][:2]}")
+    if out["processes_left"]:
+        problems.append(f"session processes left: {out['processes_left']}")
+    if problems:
+        raise AssertionError("serve_autoscale: " + "; ".join(problems))
+    return launches
+
+
+def _cluster_entries(entries, job_launches, replica_launches):
+    """The ``kernels`` line's rows of phases 33-34: phase 15's entries at
+    GPT-2's training shape with the launches the cluster job's worker
+    counted, and its ``flash_fwd`` entry at the serving shape with the
+    autoscaled replicas' summed launches."""
+    rows = []
+    for entry in entries:
+        if entry["path"] == "train":
+            rows.append(dict(entry, path="cluster_job_worker",
+                             launches=job_launches[entry["name"]],
+                             note="launches the submitted job's worker "
+                                  "counted on the launched node; times are "
+                                  "phase 15's at this shape in the "
+                                  "driver's process"))
+        elif entry["path"] == "serve" and entry["name"] == "flash_fwd":
+            rows.append(dict(entry, path="serve_autoscaled_replicas",
+                             launches=replica_launches["flash_fwd"],
+                             note="launches summed over the autoscaled "
+                                  "replicas; times are phase 15's at this "
+                                  "shape in the driver's process"))
+    return rows
+
+
 # phase 26: ring attention's blocks at GPT-2's training shape, bf16, the
 # sequence in 4 chunks of 256 (numpy seed 26)
 RING = {"b": 16, "h": 12, "s": 1024, "d": 64, "n": 4, "seed": 26}
@@ -4510,6 +4841,10 @@ def main() -> int:
     timed("data_resnet_fit", phase_data_resnet_fit, smi, *resnet_train)
     predict_launches = timed("batch_predict_vit", phase_batch_predict_vit,
                              smi)
+    job_launches = timed("cluster_cli", phase_cluster_cli, smi, bf16_losses,
+                         step_ms)
+    replica_launches = timed("serve_autoscale", phase_serve_autoscale, smi,
+                             bf16_streams)
     # phase 27 forms and destroys an NCCL group in this process: after
     # every phase that times or traces a kernel
     parallel = timed("parallel_train", phase_parallel_train, bf16_losses,
@@ -4519,6 +4854,7 @@ def main() -> int:
     kernels += _tune_entries(vit_entries, tune_launches)
     kernels += _predict_entries(vit_entries, predict_launches)
     kernels += dt_entries
+    kernels += _cluster_entries(kernels, job_launches, replica_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("seconds", **seconds)
     print(smi, flush=True)

@@ -12,11 +12,14 @@ from ray_tpu_torch.parallel.collectives import (
     reduce_scatter,
 )
 from ray_tpu_torch.parallel.mesh_utils import (
+    RankDevice,
     apply_tp_plan,
     auto_mesh,
+    create_hybrid_mesh,
     create_mesh,
     data_sharding,
     logical_to_physical,
+    mesh_from_cluster,
     shard_index,
     shard_params_fsdp,
 )
@@ -26,10 +29,10 @@ from ray_tpu_torch.parallel.pipeline import (
     stack_stage_params,
 )
 
-# create_hybrid_mesh and mesh_from_cluster wait for multi-node meshes
-# (ROADMAP). The reference's replicated() sharding is what DDP gives the
-# parameters it wraps, so it has no helper here.
+# The reference's replicated() sharding is what DDP gives the parameters
+# it wraps, so it has no helper here.
 __all__ = [
+    "RankDevice",
     "all_gather",
     "all_gather_replicated",
     "apply_tp_plan",
@@ -37,9 +40,11 @@ __all__ = [
     "build_pipeline_fn",
     "chunked_psum",
     "compiled_allreduce",
+    "create_hybrid_mesh",
     "create_mesh",
     "data_sharding",
     "logical_to_physical",
+    "mesh_from_cluster",
     "pbroadcast",
     "pipeline_apply",
     "pmean",

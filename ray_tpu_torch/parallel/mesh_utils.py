@@ -15,7 +15,7 @@ Megatron's layout.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 # Canonical axis order: data-like axes outermost (ride the slower links),
 # model-like innermost (ride NVLink between neighbours).
@@ -83,6 +83,141 @@ def auto_mesh(
             raise ValueError(f"{n} devices not divisible by fixed axes {fixed}")
         axes[wild[0]] = n // fixed
     axes = {k: v for k, v in axes.items() if v > 1 or k == "data"}
+    return create_mesh(axes)
+
+
+class RankDevice(NamedTuple):
+    """One rank of the process group as a hybrid mesh places it: the
+    reference's device, with its ``slice_index`` (a group of nodes
+    provisioned together, where known) and ``process_index`` (the node the
+    rank runs on: in the reference a process is one host)."""
+
+    rank: int
+    process_index: int = 0
+    slice_index: Optional[int] = None
+
+    @property
+    def id(self) -> int:
+        return self.rank
+
+
+def _this_node() -> str:
+    """This rank's node: its node rank in a ``TorchTrainer`` gang, else the
+    host's name."""
+    from ray_tpu_torch.train import session
+
+    if session._session is not None:
+        return f"node-rank:{session.get_context().get_node_rank()}"
+    import socket
+
+    return f"host:{socket.gethostname()}"
+
+
+def _rank_devices() -> List[RankDevice]:
+    """Every rank of the initialised process group with its node, gathered
+    over the group (the same list on every rank): the default ``devices``
+    of ``create_hybrid_mesh``. Nodes are numbered in order of their first
+    rank."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("create_hybrid_mesh needs an initialised process "
+                           "group (TorchTrainer's TorchConfig forms one)")
+    nodes = [None] * dist.get_world_size()
+    dist.all_gather_object(nodes, _this_node())
+    index: Dict[str, int] = {}
+    return [RankDevice(r, index.setdefault(n, len(index)))
+            for r, n in enumerate(nodes)]
+
+
+def _slice_groups(devices: Sequence, n_ici: int) -> Tuple[List[List], bool]:
+    """Group ranks into slices. Ranks that carry ``slice_index`` group by
+    it; else by ``process_index`` (their node); when all of them share one
+    node, contiguous blocks of ``n_ici`` ranks are the virtual slices (the
+    ``virtual`` flag returned beside the groups), as the reference carves a
+    single-process device set."""
+    keys = [getattr(d, "slice_index", None) for d in devices]
+    if any(k is None for k in keys):
+        keys = [d.process_index for d in devices]
+    if len(set(keys)) == 1:
+        return [list(devices[i:i + n_ici])
+                for i in range(0, len(devices), n_ici)], True
+    groups: Dict[int, List] = {}
+    for d, k in zip(devices, keys):
+        groups.setdefault(k, []).append(d)
+    return [groups[k] for k in sorted(groups)], False
+
+
+def create_hybrid_mesh(ici_axes: Dict[str, int], dcn_axes: Dict[str, int],
+                       devices: Optional[Sequence] = None):
+    """Two-level DeviceMesh for gangs that span nodes: the ``dcn_axes``
+    span nodes (their collectives cross the network between hosts), the
+    ``ici_axes`` live within a node (NVLink between its cards). The dcn
+    axes are outermost, so ``create_hybrid_mesh({"fsdp": 4}, {"data": 2})``
+    runs data parallelism between nodes (one gradient all-reduce a step)
+    and keeps FSDP's all-gathers on the node. ``devices`` is a sequence of
+    rank descriptors (``RankDevice``: ``rank``, ``process_index`` = node,
+    optional ``slice_index``); it defaults to every rank of the process
+    group with its node, gathered over the group. Ranks group by slice,
+    else by node; on one node, contiguous blocks of ranks. Every rank builds the
+    same mesh from the same rank array (``init_device_mesh`` lays ranks
+    out row-major only)."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    devices = list(devices) if devices is not None else _rank_devices()
+    ici_names = _ordered_axis_names(ici_axes)
+    dcn_names = _ordered_axis_names(dcn_axes)
+    overlap = set(ici_names) & set(dcn_names)
+    if overlap:
+        raise ValueError(f"axes {sorted(overlap)} appear in both levels")
+    ici_sizes = [ici_axes[a] for a in ici_names]
+    dcn_sizes = [dcn_axes[a] for a in dcn_names]
+    n_ici = math.prod(ici_sizes)
+    n_dcn = math.prod(dcn_sizes)
+    if n_ici * n_dcn > len(devices):
+        raise ValueError(
+            f"hybrid mesh {dcn_axes}x{ici_axes} needs {n_ici * n_dcn} "
+            f"devices, have {len(devices)}"
+        )
+    groups, virtual = _slice_groups(devices, n_ici)
+    if len(groups) < n_dcn:
+        raise ValueError(
+            f"need {n_dcn} slices for dcn axes {dcn_axes}, found "
+            f"{len(groups)} device groups"
+        )
+    if len(groups) > n_dcn and not virtual:
+        # a node left out of the mesh would hold no part of what its
+        # ranks compute over: name the subset instead
+        raise ValueError(
+            f"dcn axes {dcn_axes} cover {n_dcn} slices but the device set "
+            f"spans {len(groups)}; pass an explicit `devices=` subset or "
+            f"widen the dcn axes"
+        )
+    blocks = []
+    for g in groups[:n_dcn]:
+        if len(g) < n_ici:
+            raise ValueError(
+                f"slice has {len(g)} devices, ici axes {ici_axes} need "
+                f"{n_ici}"
+            )
+        block = np.empty(n_ici, dtype=object)
+        for i, d in enumerate(g[:n_ici]):  # descriptors are tuples
+            block[i] = d
+        blocks.append(block.reshape(ici_sizes))
+    layout = np.stack(blocks).reshape(dcn_sizes + ici_sizes)
+    ranks = torch.tensor([d.rank for d in layout.ravel()],
+                         dtype=torch.int64).reshape(layout.shape)
+    return DeviceMesh(_device_type(), ranks,
+                      mesh_dim_names=tuple(dcn_names) + tuple(ici_names))
+
+
+def mesh_from_cluster(nodes: List[dict], axes: Dict[str, int]):
+    """A mesh from GCS node-table entries (the multi-host path): the caller
+    has already formed the process group over every host's ranks, so this
+    is ``create_mesh(axes)``. ``nodes`` is accepted for the reference's
+    signature and not read."""
     return create_mesh(axes)
 
 

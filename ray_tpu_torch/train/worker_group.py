@@ -83,6 +83,7 @@ class TrainWorker:
             }
 
         def _run():
+            last = {"type": "done"}
             try:
                 import inspect
 
@@ -91,15 +92,20 @@ class TrainWorker:
                     train_fn(config)
                 else:
                     train_fn()
-                sess.queue.put({"type": "done"})
             except SystemExit:
-                sess.queue.put({"type": "done"})
+                pass
             except BaseException as e:  # noqa: BLE001
-                sess.queue.put({
+                last = {
                     "type": "error",
                     "error": f"{type(e).__name__}: {e}",
                     "traceback": traceback.format_exc(),
-                })
+                }
+            # no training is in flight now: a session left set would send
+            # the gang's teardown SIGTERM down the drain path, keeping the
+            # worker (and its node busy) for train_drain_grace_s
+            if session_mod.get_session() is sess:
+                session_mod.shutdown_session()
+            sess.queue.put(last)
 
         self._thread = threading.Thread(target=_run, name="train-loop", daemon=True)
         self._thread.start()

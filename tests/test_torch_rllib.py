@@ -625,3 +625,79 @@ def test_port_rllib_modules_import_no_jax_and_nothing_of_ray_tpu():
                 assert name.split(".")[0] not in {
                     "jax", "jaxlib", "flax", "optax", "ray_tpu"}, \
                     f"{f}: {name}"
+
+
+# the cluster-operations modules: (path under ray_tpu_torch/, whether the
+# GCS, a raylet or the autoscaler monitor imports it, and so must import no
+# torch at module level)
+CLUSTER_MODULES = {
+    "__main__.py": True, "scripts/__init__.py": True,
+    "scripts/cli.py": True, "autoscaler/__init__.py": True,
+    "autoscaler/autoscaler.py": True, "autoscaler/commands.py": True,
+    "autoscaler/monitor.py": True, "autoscaler/node_provider.py": True,
+    "job_submission/__init__.py": True, "_private/kv_server.py": True,
+    "util/transfer.py": True, "dashboard/grafana.py": True,
+    "_private/schedsim.py": True, "_private/perf.py": False,
+    "serve/load_harness.py": False, "parallel/mesh_utils.py": False,
+    "tools/cluster_runs.py": True,
+}
+
+
+def _module_level_imports(tree):
+    """Top-level module names imported outside any function or class."""
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+        elif isinstance(node, (ast.If, ast.Try)):
+            names += _module_level_imports(ast.Module(
+                body=[n for part in ("body", "orelse", "finalbody")
+                      for n in getattr(node, part, [])], type_ignores=[]))
+    return names
+
+
+def test_cluster_modules_import_no_jax_no_ray_tpu_and_no_torch_at_boot():
+    """The cluster-operations modules (CLI, autoscaler, job submission, KV
+    server, perf, schedsim, transfer, grafana, load harness, hybrid mesh,
+    the cluster run) name no ``ray_tpu``/``jax`` module anywhere, and those
+    that the GCS, a raylet or the monitor import have no module-level torch
+    import; importing the monitor's, the CLI's and the job supervisor's
+    modules in a fresh process loads neither torch nor JAX."""
+    import subprocess
+    import sys
+
+    root = REPO / "ray_tpu_torch"
+    for rel, at_boot in CLUSTER_MODULES.items():
+        f = root / rel
+        tree = ast.parse(f.read_text(), str(f))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            elif isinstance(node, ast.Constant) and \
+                    isinstance(node.value, str):
+                names = [node.value] if node.value == "ray_tpu" or \
+                    node.value.startswith("ray_tpu.") else []
+            for name in names:
+                assert name.split(".")[0] not in {
+                    "jax", "jaxlib", "flax", "optax", "ray_tpu"}, \
+                    f"{rel}: {name}"
+        if at_boot:
+            top = {n.split(".")[0] for n in _module_level_imports(tree)}
+            assert "torch" not in top, f"{rel} imports torch at module level"
+    code = ("import sys; import ray_tpu_torch.autoscaler.monitor, "
+            "ray_tpu_torch.autoscaler.commands, ray_tpu_torch.scripts.cli, "
+            "ray_tpu_torch.job_submission, ray_tpu_torch._private.kv_server, "
+            "ray_tpu_torch._private.schedsim, ray_tpu_torch.util.transfer, "
+            "ray_tpu_torch.dashboard.grafana, "
+            "ray_tpu_torch.tools.cluster_runs; "
+            "print(sorted(m for m in ('torch', 'jax', 'ray_tpu') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -526,3 +526,28 @@ def test_import_is_cheap_and_control_plane_needs_no_torch():
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_grafana_dashboard_shape(tmp_path):
+    """The reference's ``test_util_shims.py::test_grafana_dashboard_shape``
+    through the port: its dashboard scrapes the port's metric names (the
+    cluster built-ins keep the reference's ``ray_tpu_*`` names) and the
+    reference's panels, and its own uid."""
+    from ray_tpu.dashboard.grafana import generate_dashboard as ref_dash
+    from ray_tpu_torch.dashboard import prometheus
+    from ray_tpu_torch.dashboard.grafana import (generate_dashboard,
+                                                 write_dashboard)
+
+    dash = generate_dashboard(user_metrics=["my_app_requests_total"])
+    assert dash["uid"] == "ray-tpu-torch-cluster"
+    exprs = [p["targets"][0]["expr"] for p in dash["panels"]]
+    assert "ray_tpu_node_count" in exprs
+    assert "my_app_requests_total" in exprs
+    want = ref_dash(user_metrics=["my_app_requests_total"])
+    assert exprs == [p["targets"][0]["expr"] for p in want["panels"]]
+    src = open(prometheus.__file__).read()
+    for expr in exprs[:4]:  # the built-ins are the port's scrape's names
+        assert f'"{expr}"' in src, expr
+    path = write_dashboard(str(tmp_path / "dash.json"))
+    loaded = json.load(open(path))
+    assert loaded["panels"]

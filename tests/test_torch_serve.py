@@ -234,3 +234,75 @@ def test_serve_actors_are_the_ports(serve_cluster):
              if r.get("state") == "ALIVE"}
     assert SERVE_CONTROLLER_NAME in names
     assert any("proxy" in (n or "").lower() for n in names), names
+
+
+def test_autoscaling_scales_up(serve_cluster):
+    """``tests/test_serve.py::test_autoscaling_scales_up`` through the
+    port: the controller's ``_autoscale_once`` raises the replica count of
+    a deployment whose ongoing requests exceed its target (the CPU case of
+    chip_smoke phase 34's path)."""
+    @serve.deployment(
+        autoscaling_config={
+            "min_replicas": 1, "max_replicas": 3,
+            "target_ongoing_requests": 1, "upscale_delay_s": 0.1,
+        },
+    )
+    class Slow:
+        def __call__(self, _request=None):
+            time.sleep(1.5)
+            return "done"
+
+    handle = serve.run(Slow.bind(), name="auto", route_prefix="/auto")
+    assert serve.status()["auto"]["deployments"]["Slow"][
+        "running_replicas"] == 1
+    futs = [handle.remote() for _ in range(6)]
+    deadline = time.time() + 30
+    scaled = False
+    while time.time() < deadline:
+        n = serve.status()["auto"]["deployments"]["Slow"]["running_replicas"]
+        if n > 1:
+            scaled = True
+            break
+        time.sleep(0.25)
+    assert scaled, "autoscaler never scaled up under load"
+    for f in futs:
+        assert f.result(timeout_s=60) == "done"
+    serve.delete("auto")
+
+
+def test_load_harness_smoke(serve_cluster):
+    """``tests/test_reqtrace.py::test_load_harness_smoke`` through the
+    port's ``serve.load_harness``: the open-loop harness drives a 2-replica
+    deployment through the port's proxy and reports latency/TTFT
+    percentiles and queue-depth samples. Then what the port adds: a
+    payload per request in turn, and every answer's body kept."""
+    from ray_tpu_torch.serve.load_harness import percentiles, run_load
+
+    @serve.deployment(num_replicas=2, max_ongoing_requests=256)
+    class L:
+        async def __call__(self, request):
+            return b"ok:" + request.body
+
+    serve.run(L.bind(), name="rt_load", route_prefix="/rt_load")
+    out = run_load(_url("/rt_load"), rps=40, duration_s=2.0,
+                   connections=64, depth_sampler=lambda: 0.0,
+                   depth_sample_interval_s=0.5)
+    assert out["ok"] >= 0.9 * out["requests"], out["error_kinds"]
+    assert out["latency"]["p50"] > 0
+    assert out["ttft"]["count"] > 0
+    assert out["queue_depth_series"], "no depth samples collected"
+    assert out["peak_inflight"] >= 1
+    # open-loop: the offered schedule spans ~duration_s whatever the service
+    assert out["wall_s"] >= 1.5
+    assert "bodies" not in out
+
+    out = run_load(_url("/rt_load"), rps=20, duration_s=1.0, connections=8,
+                   method="POST", payloads=[b"a", b"b", b"c"],
+                   keep_bodies=True)
+    assert [b["i"] for b in out["bodies"]] == list(range(out["requests"]))
+    for b in out["bodies"]:
+        assert b["status"] == 200
+        assert b["body"] == b"ok:" + b"abc"[b["i"] % 3:b["i"] % 3 + 1]
+    assert percentiles([]) == {"count": 0, "mean": 0.0, "p50": 0.0,
+                               "p95": 0.0, "p99": 0.0, "max": 0.0}
+    serve.delete("rt_load")

@@ -408,6 +408,45 @@ def test_exhausted_budget_is_terminal(port_cluster, tmp_path):
     assert isinstance(result.error, FailureBudgetExhaustedError)
 
 
+def test_gang_exits_at_once_after_fit(port_cluster, tmp_path):
+    """A finished loop holds no session, so the SIGTERM of the gang's
+    teardown exits the worker at once, not after the drain grace (the
+    reference's workers outlive ``fit()`` by ``train_drain_grace_s``)."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    def pid_loop(config):
+        import os
+
+        from ray_tpu_torch import train
+
+        train.report({"pid": os.getpid()})
+
+    trainer = train.DataParallelTrainer(
+        pid_loop,
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=False),
+        run_config=train.RunConfig(name="t_ft_exit",
+                                   storage_path=str(tmp_path)),
+    )
+    result = trainer.fit()
+    assert result.error is None
+    pid = result.metrics["pid"]
+
+    def alive():
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+        except OSError:
+            return False
+
+    t0 = time.monotonic()
+    while alive() and time.monotonic() - t0 < 20:
+        time.sleep(0.1)
+    gone_s = time.monotonic() - t0
+    assert not alive()
+    assert gone_s < min(10.0, GLOBAL_CONFIG.train_drain_grace_s / 3), gone_s
+
+
 # ---------------------------------------------------------------------------
 # step telemetry: the compile listener (kernel builds) and the module surface
 # ---------------------------------------------------------------------------
