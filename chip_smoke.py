@@ -5,8 +5,11 @@
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
-1. device: ``nvidia-smi`` name and power limit, torch, CUDA and nvcc versions.
-   TF32 is switched off for the checks.
+1. device: ``nvidia-smi`` name and power limit, torch, CUDA and nvcc versions,
+   and which of the libraries that slice 16's trainers and shims wrap
+   (TensorFlow, sklearn, joblib, dask, xgboost, LightGBM, transformers) are
+   installed; none of them is on a card path. TF32 is switched off for the
+   checks.
 2. build: nvcc builds every kernel source of the ported paths
    (``ray_tpu_torch/ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``, both
    including ``mma_sm90.cuh``), all at once, and reports each kernel's
@@ -443,6 +446,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    its prompt; no process left. Prints ``run_load``'s TTFT and latency
    percentiles, tokens/s, the time to scale up and each replica's
    launches.
+35. workflow_queue (after phase 34; ``tools/workflow_runs.py``): in its own
+   cluster (4 CPUs, 1 GPU), the durable workflow
+   ``serve_step.bind(train_step.bind(...), wait_for_event(FileListener,
+   path))``, both steps ``num_gpus=1``. ``train_step`` trains GPT-2-124M
+   as phase 8 does (bf16 over f32, 16 x 1024, seeds 0 and 1) for 4 steps
+   and saves the weights under the workflow's storage; ``serve_step``
+   loads them and answers phase 6's 4 prompts, 16 greedy tokens each,
+   through ``GPT2LLM``. The first run is a driver subprocess, SIGKILLed
+   once the train step's checkpoint is in storage while the event step
+   waits; the event's file is then created and ``workflow.resume`` runs
+   from this process. Then ``util.multiprocessing.Pool(2).map`` builds
+   phase 6's prompts on CPU workers, the driver puts them into a
+   ``util.queue.Queue(maxsize=2)`` (a third put without blocking is
+   refused) and a ``num_gpus=1`` consumer actor answers each onto a second
+   queue. Checks: the killed run did not read SUCCESSFUL; the train step
+   ran once (a call log); its losses equal phase 8's first 4 to the bit;
+   it launched each kernel 4 x 12 times in its worker; the resumed run's
+   serve step launched ``flash_fwd`` >= 12 per forward and no backward
+   kernel; its tokens (and ``get_output``'s) equal a greedy decode of the
+   saved weights in this process; ``get_status`` reads SUCCESSFUL and
+   ``list_all`` names the run; the pool's prompts and the consumer's
+   tokens equal phase 6's, with ``flash_fwd`` >= 12 per forward and no
+   backward launch in the consumer; every step and the consumer ran on the
+   card in a process of its own; no process of the session is left.
+   Prints each step's seconds, kill to resume, the resumed run's seconds,
+   the queue's round trip per prompt and the launches.
 
 Every phase raises on a failed check; no failure is caught.
 
@@ -457,7 +486,11 @@ path's ``flash_fwd`` row (the same times, with the launches the
 predictor's actors counted), phase 32's DT rows, and the rows of phases
 33-34: the training shape's with the cluster job's worker's launches
 (``cluster_job_worker``) and the serving shape's ``flash_fwd`` with the
-autoscaled replicas' (``serve_autoscaled_replicas``). Then one line with
+autoscaled replicas' (``serve_autoscaled_replicas``), and phase 35's: the
+training shape's with the workflow's train step's launches
+(``workflow_train_step``) and the serving shape's ``flash_fwd`` with the
+serve step's (``workflow_serve_step``) and the queue consumer's
+(``queue_consumer``). Then one line with
 each phase's seconds. The last two lines are the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
@@ -490,6 +523,10 @@ F32_FLOPS_PER_S = 67e12
 GPT2_124M = dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
                  n_head=12)
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the libraries the trainers and shims of slice 16 wrap; none is on a card
+# path, phase 1 says which are installed
+OPTIONAL_LIBRARIES = ("tensorflow", "sklearn", "joblib", "dask", "xgboost",
+                      "lightgbm", "transformers")
 SOURCE = {"flash_fwd": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
           "flash_bwd_dq": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
           "flash_bwd_dkv": "ray_tpu_torch/ops/csrc/flash_bwd.cu"}
@@ -515,10 +552,14 @@ def phase_device():
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = _run([f"{CUDA_HOME}/bin/nvcc", "--version"]).splitlines()[-1]
+    import importlib.util
+
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          capability=list(torch.cuda.get_device_capability(0)),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, nvcc=nvcc)
+         cuda=torch.version.cuda, nvcc=nvcc,
+         installed={name: importlib.util.find_spec(name) is not None
+                    for name in OPTIONAL_LIBRARIES})
     return smi
 
 
@@ -922,14 +963,13 @@ def _loss_problems(losses):
 def _zero_launches():
     from ray_tpu_torch.ops import attention as attn
 
-    for name in KERNELS:
-        setattr(attn, f"{name}_launches", 0)
+    attn.zero_launches()
 
 
 def _read_launches():
     from ray_tpu_torch.ops import attention as attn
 
-    return {name: getattr(attn, f"{name}_launches") for name in KERNELS}
+    return attn.read_launches()
 
 
 def _f32_kernel_vs_plain(step_grads, n_layer):
@@ -1681,14 +1721,11 @@ def _probed_llm_server():
 
             from ray_tpu_torch.ops import attention as attn
 
-            names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
             if reset:
-                for name in names:
-                    setattr(attn, f"{name}_launches", 0)
+                attn.zero_launches()
                 self.model.forwards = 0
             dev = self.model.device
-            return {"launches": {n: getattr(attn, f"{n}_launches")
-                                 for n in names},
+            return {"launches": attn.read_launches(),
                     "forwards": self.model.forwards, "pid": _os.getpid(),
                     "init_s": self.init_s,
                     "device": str(dev),
@@ -1874,7 +1911,9 @@ def phase_serve_run(smi, bf16_streams):
 
 
 # Phase 20: GPT-2-124M trained by TorchTrainer.fit() from a worker gang
-TRAIN_FIT = {"steps": 5, "ckpt_at": (1, 4), "kill_at": 2, "quant_steps": 2}
+# (3 steps and one checkpoint: the depth cut to keep the whole script in
+# its time; the resumed and recovered runs each take step 2 again)
+TRAIN_FIT = {"steps": 3, "ckpt_at": (1,), "kill_at": 2, "quant_steps": 2}
 
 
 def _fit_loop(config):
@@ -1904,9 +1943,7 @@ def _fit_loop(config):
     from ray_tpu_torch.tools import train_runs
 
     t_loop = _time.time()
-    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    for name in names:
-        setattr(attn, f"{name}_launches", 0)
+    attn.zero_launches()
     _torch.cuda.reset_peak_memory_stats()
     ctx = train.get_context()
     mesh = parallel.create_mesh({"data": ctx.get_world_size()})
@@ -1950,8 +1987,7 @@ def _fit_loop(config):
                 "backend": dist.get_backend(), "world": dist.get_world_size(),
                 "device": str(_torch.device("cuda", dev)),
                 "device_name": _torch.cuda.get_device_name(dev),
-                "launches": {n: getattr(attn, f"{n}_launches")
-                             for n in names},
+                "launches": attn.read_launches(),
                 "plain_calls": plain_calls[0],
                 "peak_memory_bytes": _torch.cuda.max_memory_allocated(),
                 "loop_start": t_loop, "ready": t_ready,
@@ -2535,7 +2571,7 @@ def _probed_torch_predictor():
             from ray_tpu_torch.tools.train_runs import counting_plain_calls
 
             ids = batch.pop("id")
-            before = {n: getattr(attn, f"{n}_launches") for n in KERNELS}
+            before = attn.read_launches()
             began = time.time()
             t0 = time.perf_counter()
             with counting_plain_calls() as plain:
@@ -2545,8 +2581,7 @@ def _probed_torch_predictor():
             first = np.zeros(n, np.int64)
             for name in KERNELS:
                 out[name] = first.copy()
-                out[name][0] = getattr(attn, f"{name}_launches") - \
-                    before[name]
+                out[name][0] = attn.read_launches()[name] - before[name]
             out["plain_calls"] = first.copy()
             out["plain_calls"][0] = plain[0]
             out["began"] = np.zeros(n)
@@ -2920,11 +2955,10 @@ def phase_rllib_ppo(smi):
         learner = algo.learner
         _timed_method(algo, "_sample_all", samples)
         _timed_method(learner, "update", updates)
-        for name in KERNELS:
-            setattr(attn, f"{name}_launches", 0)
+        attn.zero_launches()
         iters, best, returns, iter_s = _train_to_bar(algo, stop)
         update_s = [u["s"] for u in updates]  # the training's, not below
-        flash = {n: getattr(attn, f"{n}_launches") for n in KERNELS}
+        flash = attn.read_launches()
         peak = torch.cuda.max_memory_allocated(dev)
         param_devices = sorted({str(p.device) for p in learner.params})
         state_devices = sorted({str(v.device) for s in
@@ -4136,27 +4170,130 @@ def phase_serve_autoscale(smi, bf16_streams):
     return launches
 
 
-def _cluster_entries(entries, job_launches, replica_launches):
-    """The ``kernels`` line's rows of phases 33-34: phase 15's entries at
-    GPT-2's training shape with the launches the cluster job's worker
-    counted, and its ``flash_fwd`` entry at the serving shape with the
-    autoscaled replicas' summed launches."""
+def _worker_entries(entries, train, serve):
+    """``kernels`` rows of the paths that launch at phase 15's GPT-2 shapes
+    in processes of their own (phases 33-35): for each (path, launches,
+    whose) of ``train``, phase 15's entries at the training shape with
+    those launches; of ``serve``, its ``flash_fwd`` entry at the serving
+    shape. The times are phase 15's at that shape in the driver's
+    process."""
     rows = []
     for entry in entries:
         if entry["path"] == "train":
-            rows.append(dict(entry, path="cluster_job_worker",
-                             launches=job_launches[entry["name"]],
-                             note="launches the submitted job's worker "
-                                  "counted on the launched node; times are "
-                                  "phase 15's at this shape in the "
-                                  "driver's process"))
+            group = train
         elif entry["path"] == "serve" and entry["name"] == "flash_fwd":
-            rows.append(dict(entry, path="serve_autoscaled_replicas",
-                             launches=replica_launches["flash_fwd"],
-                             note="launches summed over the autoscaled "
-                                  "replicas; times are phase 15's at this "
-                                  "shape in the driver's process"))
+            group = serve
+        else:
+            continue
+        for path, launches, whose in group:
+            rows.append(dict(entry, path=path,
+                             launches=launches[entry["name"]],
+                             note=f"launches {whose}; times are phase "
+                                  "15's at this shape in the driver's "
+                                  "process"))
     return rows
+
+
+# phase 35: the durable train-then-serve workflow and the queue feeding the
+# card (``tools/workflow_runs.py``), at phase 8's training and phase 6's
+# serving configurations
+WORKFLOW = {"device": "cuda", "num_gpus": 1, "steps": 4, "batch": 16,
+            "seq": 1024,
+            "train_model": {"preset": "gpt2_124m", "attention": "flash",
+                            "loss_chunks": 8, "dtype": "bfloat16"},
+            "serve_model": dict(GPT2_124M, attention="flash",
+                                dtype="bfloat16"),
+            "prompt_lens": [32, 129, 300, 512], "new_tokens": 16}
+
+
+def phase_workflow_queue(smi, bf16_losses, bf16_streams):
+    """A workflow trains GPT-2-124M in a worker, loses its driver to
+    SIGKILL while an event step waits, and resumes from this process to
+    serve the saved weights in another worker; then a bounded queue feeds
+    phase 6's prompts, built by a ``Pool`` of CPU workers, to a consumer
+    actor on the card. Returns the launches of the train step, the serve
+    step and the consumer, each read in its own worker."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.tools import workflow_runs
+
+    workdir = tempfile.mkdtemp(prefix="workflow_")
+    try:
+        out = workflow_runs.drive(workdir, WORKFLOW,
+                                  dict(num_cpus=4, num_gpus=1))
+        problems = workflow_runs.problems(out, WORKFLOW,
+                                          GPT2_124M["n_layer"])
+        train, serve, q = out["train"], out["serve"], out["queue"]
+        # a greedy decode of the saved weights in this process
+        llm = workflow_runs.load_llm(WORKFLOW, train["weights"])
+        _zero_launches()
+        inproc = [workflow_runs.greedy(llm, p, WORKFLOW["new_tokens"])
+                  for p in q["prompts"]]
+        inproc_launches = _read_launches()
+        del llm
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    steps = WORKFLOW["steps"]
+    rng = np.random.default_rng(2)  # phase 6's prompts
+    phase6_prompts = [rng.integers(0, 50257, size=n).tolist()
+                      for n in WORKFLOW["prompt_lens"]]
+    card = smi.split(",")[0].strip()
+    emit("workflow_queue",
+         config="train_step: gpt2_124m attention=flash loss_chunks=8 "
+                "bf16/f32-params AdamW, 4 steps at 16 x 1024 from seed 0 on "
+                "seed 1's batch; serve_step and the consumer: GPT2LLM bf16, "
+                "4 prompts x 16 greedy tokens",
+         train_step_s=train["seconds"], serve_step_s=serve["seconds"],
+         first_run_to_checkpoint_s=out["first_run_s"],
+         status_after_kill=out["status_after_kill"],
+         kill_to_resume_s=out["kill_to_resume_s"],
+         resumed_run_s=out["resume_s"], calls=out["calls"],
+         losses=train["losses"], phase8_losses=bf16_losses[:steps],
+         losses_equal_to_the_bit=train["losses"] == bf16_losses[:steps],
+         train_launches=train["launches"], serve_launches=serve["launches"],
+         serve_forwards=serve["forwards"], served_tokens=serve["tokens"],
+         inproc_tokens=inproc, inproc_launches=inproc_launches,
+         status=out["status"], listed=out["listed"],
+         workers={"train": [train["pid"], train["device_name"]],
+                  "serve": [serve["pid"], serve["device_name"]],
+                  "consumer": [q["consumer"]["pid"],
+                               q["consumer"]["device_name"]]},
+         pool_s=q["pool_s"], consumer_start_s=q["consumer_start_s"],
+         third_put_refused=q["third_put_refused"],
+         blocked_put_s=q["blocked_put_s"],
+         queue_round_trip_s=q["round_trip_s"], queue_wall_s=q["wall_s"],
+         consumer_launches=q["consumer"]["launches"],
+         consumer_forwards=q["consumer"]["forwards"],
+         processes_left=out["processes_left"],
+         note="seconds on the host clock: each step's from its start in "
+              "its worker to its return; first_run_to_checkpoint_s from "
+              "the driver's start to the train step's checkpoint in "
+              "storage; kill_to_resume_s from SIGKILL to the resume call; "
+              "resumed_run_s that call; queue_round_trip_s from a "
+              "prompt's put to its answer's put by the consumer")
+    if train["losses"] != bf16_losses[:steps]:
+        problems.append(f"losses {train['losses']} vs phase 8's "
+                        f"{bf16_losses[:steps]}")
+    if serve["tokens"] != inproc or out["output"]["tokens"] != inproc:
+        problems.append("the served tokens differ from the in-process "
+                        "decode of the saved weights")
+    if q["prompts"] != phase6_prompts:
+        problems.append("the pool's prompts differ from phase 6's")
+    if q["tokens"] != [list(s) for s in bf16_streams[:4]]:
+        problems.append(f"the consumer's tokens {q['tokens']} differ from "
+                        "phase 6's streams")
+    for name, (pid, dev) in {
+            "train": (train["pid"], train["device_name"]),
+            "serve": (serve["pid"], serve["device_name"]),
+            "consumer": (q["consumer"]["pid"],
+                         q["consumer"]["device_name"])}.items():
+        if dev != card or pid == os.getpid():
+            problems.append(f"{name} ran on {dev} in pid {pid}")
+    if problems:
+        raise AssertionError("workflow_queue: " + "; ".join(problems))
+    return train["launches"], serve["launches"], q["consumer"]["launches"]
 
 
 # phase 26: ring attention's blocks at GPT-2's training shape, bf16, the
@@ -4845,6 +4982,8 @@ def main() -> int:
                          step_ms)
     replica_launches = timed("serve_autoscale", phase_serve_autoscale, smi,
                              bf16_streams)
+    workflow_launches = timed("workflow_queue", phase_workflow_queue, smi,
+                              bf16_losses, bf16_streams)
     # phase 27 forms and destroys an NCCL group in this process: after
     # every phase that times or traces a kernel
     parallel = timed("parallel_train", phase_parallel_train, bf16_losses,
@@ -4854,7 +4993,18 @@ def main() -> int:
     kernels += _tune_entries(vit_entries, tune_launches)
     kernels += _predict_entries(vit_entries, predict_launches)
     kernels += dt_entries
-    kernels += _cluster_entries(kernels, job_launches, replica_launches)
+    train_step, serve_step, consumer = workflow_launches
+    kernels += _worker_entries(kernels, [
+        ("cluster_job_worker", job_launches,
+         "the submitted job's worker counted on the launched node"),
+        ("workflow_train_step", train_step,
+         "the workflow's train step counted in its worker")], [
+        ("serve_autoscaled_replicas", replica_launches,
+         "summed over the autoscaled replicas"),
+        ("workflow_serve_step", serve_step,
+         "the workflow's serve step counted in its worker"),
+        ("queue_consumer", consumer,
+         "the queue's consumer actor counted")])
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("seconds", **seconds)
     print(smi, flush=True)

@@ -48,7 +48,7 @@ class FileLogStore:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         self._f = None
 
-    # first bytes of a native-store (src/log_store.cpp) file — this store
+    # first bytes of a native-store (csrc/log_store.cpp) file — this store
     # must refuse it rather than compact it down to nothing
     NATIVE_MAGIC = b"RTPULG02"
 
@@ -59,8 +59,9 @@ class FileLogStore:
                 if probe.read(8) == self.NATIVE_MAGIC:
                     raise RuntimeError(
                         f"{self.path} was written by the native log store "
-                        "but the native library is unavailable; rebuild "
-                        "src/ (make -C src) or move the file aside"
+                        "but the native library is unavailable; install "
+                        "g++ so native_store builds it, or move the "
+                        "file aside"
                     )
             with open(self.path, "rb") as f:
                 while True:
@@ -114,7 +115,7 @@ class FileLogStore:
 
 
 class NativeLogStore:
-    """C++ append-log store (src/log_store.cpp) behind the same interface:
+    """C++ append-log store (csrc/log_store.cpp) behind the same interface:
     native framing, torn-tail truncation, and compaction; keys/values stay
     pickled by this layer (opaque bytes to C++). Reference analog: the
     RedisStoreClient persistence role, collapsed to a local log."""

@@ -2,11 +2,12 @@
 
 The reference's node-selection policies are C++ (ray:
 src/ray/raylet/scheduling/policy/*, cluster_resource_scheduler.h); here
-they live in src/scheduler.cpp behind a C ABI. `pick_node` and
+they live in _private/csrc/scheduler.cpp behind a C ABI (built into the
+port's own library by native_store.py). `pick_node` and
 `place_bundles` in ray_tpu_torch/_private/common.py dispatch to this module when
 the shared library is available (set ``RAY_TPU_TORCH_NATIVE_SCHED=0`` to force
-the pure-Python policies); tests/test_native_sched.py differential-tests
-both implementations on randomized clusters — they must agree node-for-node.
+the pure-Python policies); both implementations must agree
+node-for-node on the same cluster view.
 
 Wire format: the cluster view is serialized per call (clusters are
 hundreds of nodes, not millions; serialization is nanoseconds against an
@@ -32,7 +33,7 @@ def _lib():
     if lib is None:
         return None
     if not hasattr(lib, "rtpu_sched_pick"):
-        return None  # stale .so from before the scheduler landed
+        return None  # a library built without the scheduler
     if not _configured:
         lib.rtpu_sched_pick.restype = ctypes.c_int
         lib.rtpu_sched_pick.argtypes = [

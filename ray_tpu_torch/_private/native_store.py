@@ -1,9 +1,16 @@
 """ctypes binding for the native (C++) object store.
 
-Loads ``src/librtpu_store.so`` (building it with make on first use if a
-toolchain is present) and exposes the same surface as the pure-Python
-implementation in object_store.py. The runtime picks native when
-available; set ``RAY_TPU_TORCH_NATIVE_STORE=0`` to force the Python path.
+Loads the port's own ``librtpu_store.so``, built with g++ from
+``_private/csrc/`` at first load (never at import) into
+``build/ray_tpu_torch/`` at the repository root, and exposes the same
+surface as the pure-Python implementation in object_store.py. The runtime
+picks native when available; set ``RAY_TPU_TORCH_NATIVE_STORE=0`` to force
+the Python path, which also stands in when no compiler is present.
+
+The library's file name carries a hash of the sources and the flags, so
+an edited source rebuilds and an unchanged one loads the library already
+built; ``compile_once`` builds it under a file lock and moves it into place
+atomically.
 
 Reference parity: this is the plasma-client boundary (ray:
 src/ray/object_manager/plasma/client.h) collapsed to a C ABI — the data
@@ -14,23 +21,48 @@ processes interoperate on one store directory.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
-import subprocess
 import threading
-from typing import Iterable, Optional, Tuple
+from pathlib import Path
+from typing import Iterable, Optional, Sequence, Tuple
+
+from ray_tpu_torch._private.compile_once import BUILD_DIR, compile_once
 
 logger = logging.getLogger(__name__)
 
-_SRC_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "src",
-)
-_LIB_PATH = os.path.join(_SRC_DIR, "librtpu_store.so")
+CSRC = Path(__file__).resolve().parent / "csrc"
+LIB_SOURCES = ("object_store.cpp", "log_store.cpp", "scheduler.cpp")
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-Wextra")
 
 _lib = None
 _lib_lock = threading.Lock()
 _build_attempted = False
+
+
+def output_path(stem: str, sources: Sequence[str], shared: bool) -> Path:
+    """``build/ray_tpu_torch/<stem>-<hash>[.so]``: the hash covers the
+    sources and the flags."""
+    flags = CXX_FLAGS + (("-shared",) if shared else ())
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sources:
+        h.update(name.encode() + (CSRC / name).read_bytes())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}{'.so' if shared else ''}"
+
+
+def build(stem: str, sources: Sequence[str], shared: bool) -> Path:
+    """Compile ``sources`` (names under ``csrc/``) with g++ unless the output
+    exists; returns its path. Raises on a compiler failure."""
+    out = output_path(stem, sources, shared)
+    flags = CXX_FLAGS + (("-shared",) if shared else ())
+    compile_once(out, stem, lambda tmp: ["g++", *flags, "-o", str(tmp), *(
+        str(CSRC / name) for name in sources)])
+    return out
+
+
+def library_path() -> Path:
+    return output_path("librtpu_store", LIB_SOURCES, shared=True)
 
 
 def _configure(lib):
@@ -84,8 +116,8 @@ def _configure(lib):
     lib.rtpu_store_list.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64
     ]
-    # append-log KV store (GCS persistence; src/log_store.cpp). Optional:
-    # a prebuilt .so without these symbols still serves the object store.
+    # append-log KV store (GCS persistence; csrc/log_store.cpp). Optional:
+    # a library without these symbols still serves the object store.
     u8pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
     u64p = ctypes.POINTER(ctypes.c_uint64)
     try:
@@ -124,45 +156,20 @@ def load_library() -> Optional[ctypes.CDLL]:
     with _lib_lock:
         if _lib is not None:
             return _lib
-
-        def _stale() -> bool:
-            """A .so older than any source is from a previous build and may
-            be missing newer symbols — rebuild rather than crash on
-            AttributeError during _configure."""
-            if not os.path.exists(_LIB_PATH):
-                return True
-            lib_mtime = os.path.getmtime(_LIB_PATH)
-            for name in os.listdir(_SRC_DIR):
-                if name.endswith((".cpp", ".h")) and os.path.getmtime(
-                    os.path.join(_SRC_DIR, name)
-                ) > lib_mtime:
-                    return True
-            return False
-
-        if _stale() and not _build_attempted:
+        path = library_path()
+        if not path.exists() and not _build_attempted:
             _build_attempted = True
             try:
-                # Cross-process file lock: many workers starting at once
-                # must not run concurrent builds of the same output (the
-                # Makefile links to a temp name + atomic mv, so already-
-                # mapped processes are safe either way).
-                import fcntl
-
-                with open(os.path.join(_SRC_DIR, ".build.lock"), "w") as lk:
-                    fcntl.flock(lk, fcntl.LOCK_EX)
-                    if _stale():  # may have been built while we waited
-                        subprocess.run(
-                            ["make", "-C", _SRC_DIR, "-s", "-B"],
-                            check=True, capture_output=True, timeout=120,
-                        )
-            except Exception as e:  # no toolchain / build failure
-                logger.debug("native store build failed: %s", e)
-        if not os.path.exists(_LIB_PATH):
+                build("librtpu_store", LIB_SOURCES, shared=True)
+            except FileNotFoundError as e:  # no g++: the Python store
+                logger.debug("native store not built: %s", e)
+            except Exception as e:  # a compiler error in csrc/
+                logger.warning("native store build failed: %s", e)
+        if not path.exists():
             return None
         try:
-            _lib = _configure(ctypes.CDLL(_LIB_PATH))
+            _lib = _configure(ctypes.CDLL(str(path)))
         except (OSError, AttributeError) as e:
-            # AttributeError = stale .so missing newer symbols
             logger.warning("could not load native store: %s", e)
             return None
         return _lib

@@ -377,7 +377,7 @@ def make_local_store(store_dir: str, capacity_bytes: int,
     ``RAY_TPU_TORCH_slab_arena=0`` until it learns the slab format (the
     parity gate: both paths serve the same public store surface and the
     same test suite). Legacy mode picks the native store
-    (src/librtpu_store.so) when loadable. ``spill_dir`` is a path OR a
+    (``native_store``'s build of ``_private/csrc/``) when loadable. ``spill_dir`` is a path OR a
     storage URI (ray: local_object_manager.h:40 + external_storage.py):
     file:///bare paths spill to disk; other schemes (s3://,
     test-registered) route through the pluggable driver."""

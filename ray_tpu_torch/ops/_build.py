@@ -8,27 +8,23 @@ every ``*.cuh`` header it can include (those beside it and those in
 ``ops/csrc/``, both on nvcc's include path) and of the flags, so an edited
 source or header rebuilds and an unchanged one loads the library already
 built. Each build that runs nvcc is a compile event in the process's
-step-telemetry ring (``steptrace.record_kernel_build``). A file lock per
-source keeps concurrent processes from
-building the same library twice while different sources build side by side;
-the finished library is moved into place atomically.
+step-telemetry ring (``steptrace.record_kernel_build``). The build itself is
+``_private/compile_once.py``'s: a file lock per source, and the finished
+library moved into place atomically.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import hashlib
-import os
 import re
-import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Tuple
 
 from ray_tpu_torch._private import steptrace
+from ray_tpu_torch._private.compile_once import BUILD_DIR, compile_once
 
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -66,25 +62,13 @@ def build(source: Path) -> Tuple[Path, float]:
     """Compile ``source`` unless its library exists; returns the library's
     path and the seconds spent compiling. Raises on any nvcc failure."""
     out = library_path(source)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / f".{source.stem}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if out.exists():
-            return out, 0.0
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        includes = [f"-I{d}" for d in _include_dirs(source)]
-        cmd = [_nvcc(), *NVCC_FLAGS, *includes, "-o", str(tmp), str(source)]
-        t0, wall0 = time.perf_counter(), time.time()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        steptrace.record_kernel_build(source.stem, wall0, time.time())
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n"
-                               f"{proc.stderr[-4000:]}")
-        os.replace(tmp, out)
-        return out, seconds
+    includes = [f"-I{d}" for d in _include_dirs(source)]
+    seconds = compile_once(out, source.stem, lambda tmp: [
+        _nvcc(), *NVCC_FLAGS, *includes, "-o", str(tmp), str(source)])
+    if seconds:
+        end = time.time()
+        steptrace.record_kernel_build(source.stem, end - seconds, end)
+    return out, seconds
 
 
 def ptxas_summary(library: Path) -> Dict[str, str]:

@@ -42,7 +42,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,8 +58,22 @@ _HEAD_DIMS = (16, 32, 64, 128)
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count in this process to 0."""
+    global flash_fwd_launches, flash_bwd_dq_launches, flash_bwd_dkv_launches
+    flash_fwd_launches = flash_bwd_dq_launches = flash_bwd_dkv_launches = 0
+
+
+def read_launches() -> Dict[str, int]:
+    """{kernel: launches in this process since the last ``zero_launches``}."""
+    return {"flash_fwd": flash_fwd_launches,
+            "flash_bwd_dq": flash_bwd_dq_launches,
+            "flash_bwd_dkv": flash_bwd_dkv_launches}
 
 
 def attention_reference(q, k, v, *, causal: bool = False,

@@ -31,7 +31,6 @@ from typing import Any, Dict, List, Optional
 
 JOB_MARK = "CLUSTER_JOB "
 NODE_TYPE = "gpu_node"
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOKEN_ENV = "RAY_TPU_TORCH_CLUSTER_TOKEN"
 IDLE_TIMEOUT_MINUTES = 0.1
 
@@ -86,8 +85,7 @@ def job_loop(config):
     from ray_tpu_torch.tools import train_runs
 
     t_loop = _time.time()
-    for name in KERNELS:
-        setattr(attn, f"{name}_launches", 0)
+    attn.zero_launches()
     ctx = train.get_context()
     nodes = ctx.get_world_size() // ctx.get_local_world_size()
     mesh = parallel.create_hybrid_mesh(
@@ -116,8 +114,7 @@ def job_loop(config):
                 "device": str(device),
                 "device_name": torch.cuda.get_device_name(device)
                 if device.type == "cuda" else None,
-                "launches": {n: getattr(attn, f"{n}_launches")
-                             for n in KERNELS},
+                "launches": attn.read_launches(),
                 "plain_calls": plain_calls[0],
                 "mesh": [list(mesh.mesh_dim_names),
                          list(mesh.mesh.shape)],
@@ -377,6 +374,8 @@ def problems(out: Dict[str, Any], steps: int,
         found.append(f"the gang ran on {workers}; launched {launched}, "
                      f"head {head_ids}")
     if launches_per_step is not None:
+        from ray_tpu_torch.ops.attention import KERNELS
+
         want = dict.fromkeys(KERNELS, launches_per_step * steps)
         if reps[-1]["launches"] != want:
             found.append(f"launches {reps[-1]['launches']}, want {want}")

@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models import vision
+from ray_tpu_torch.ops.attention import KERNELS
 
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 MODELS = {"resnet50_cifar": vision.ResNetConfig.resnet50_cifar,
           "small_test": vision.ResNetConfig.small_test}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -90,8 +90,7 @@ def resnet_data_loop(config: Dict) -> None:
     if config.get("init"):
         net.load_state_dict(torch.load(config["init"], map_location=device))
     step = vision.build_train_step(net, optimizer)
-    for name in KERNELS:
-        setattr(attn, f"{name}_launches", 0)
+    attn.zero_launches()
     out = {}
     with counting_plain_calls() as plain_calls:
         for name, epochs in config["epochs"]:
@@ -125,7 +124,7 @@ def resnet_data_loop(config: Dict) -> None:
             out[name] = runs
     train.report({
         "datasets": out,
-        "launches": {n: getattr(attn, f"{n}_launches") for n in KERNELS},
+        "launches": attn.read_launches(),
         "plain_calls": plain_calls[0],
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),

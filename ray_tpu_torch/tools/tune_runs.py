@@ -17,11 +17,11 @@ from typing import Dict, Iterable, List, Optional, Sequence
 import torch
 
 from ray_tpu_torch.models import vision
+from ray_tpu_torch.ops.attention import KERNELS
 from ray_tpu_torch.tools.train_runs import counting_plain_calls
 from ray_tpu_torch.tune.schedulers import ASHAScheduler
 from ray_tpu_torch.tune.schedulers.trial_scheduler import TrialScheduler
 
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 MODELS = {"vit_b16": vision.ViTConfig.vit_b16,
           "small_test": vision.ViTConfig.small_test}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -67,8 +67,7 @@ def vit_trial_loop(config: Dict) -> None:
     batch = vision.synthetic_image_batch(config["batch_seed"],
                                          config["batch"], cfg.image_size,
                                          cfg.num_classes, device=device)
-    for name in KERNELS:
-        setattr(attn, f"{name}_launches", 0)
+    attn.zero_launches()
     t_ready = time.time()
     with counting_plain_calls() as plain_calls:
         for i in range(config["steps"]):
@@ -83,8 +82,7 @@ def vit_trial_loop(config: Dict) -> None:
                 "cpu_threads": torch.get_num_threads(),
                 "device_name": (torch.cuda.get_device_name(device)
                                 if device.type == "cuda" else "cpu"),
-                "launches": {n: getattr(attn, f"{n}_launches")
-                             for n in KERNELS},
+                "launches": attn.read_launches(),
                 "plain_calls": plain_calls[0],
                 "kernel_builds": [r for r in steptrace.snapshot()
                                   if r["kind"] == "compile"],

@@ -6,7 +6,8 @@ from ray_tpu_torch.air.config import (
     ScalingConfig,
 )
 from ray_tpu_torch.air.result import Result
-from ray_tpu_torch.train.backend import Backend, BackendConfig, TorchConfig
+from ray_tpu_torch.train.backend import (Backend, BackendConfig,
+                                         TensorflowConfig, TorchConfig)
 from ray_tpu_torch.train.backend_executor import (BackendExecutor,
                                                   FailureBudgetExhaustedError,
                                                   TrainingFailedError)
@@ -16,16 +17,18 @@ from ray_tpu_torch.train.session import (GradSync, get_checkpoint, get_context,
 from ray_tpu_torch.train.trainer import (
     BaseTrainer,
     DataParallelTrainer,
+    SklearnTrainer,
+    TensorflowTrainer,
     TorchTrainer,
 )
+from ray_tpu_torch.train.gbdt import LightGBMTrainer, XGBoostTrainer
 from ray_tpu_torch.train.predictor import (BatchPredictor, Predictor,
                                            SklearnPredictor, TorchPredictor,
                                            XGBoostPredictor)
 from ray_tpu_torch.train.worker_group import WorkerGroup
 
 # The reference's JaxTrainer/JaxConfig/JaxPredictor are TorchTrainer/
-# TorchConfig/TorchPredictor here; its Sklearn, Tensorflow, GBDT and
-# HuggingFace trainers are not ported yet (ROADMAP queue 1).
+# TorchConfig/TorchPredictor here.
 __all__ = [
     "BatchPredictor",
     "TorchPredictor",
@@ -46,6 +49,9 @@ __all__ = [
     "ScalingConfig",
     "TorchConfig",
     "TorchTrainer",
+    "TensorflowConfig",
+    "TensorflowTrainer",
+    "SklearnTrainer",
     "TrainingFailedError",
     "WorkerGroup",
     "GradSync",
@@ -55,4 +61,14 @@ __all__ = [
     "report",
     "set_overlap_grads",
     "step_phase",
+    "TransformersTrainer",
 ]
+
+
+def __getattr__(name):
+    # transformers imports are heavy; load the HF integration lazily
+    if name == "TransformersTrainer":
+        from ray_tpu_torch.train.huggingface import TransformersTrainer
+
+        return TransformersTrainer
+    raise AttributeError(name)

@@ -6,6 +6,7 @@ _setup_torch_process_group). TorchConfig is the port's flagship backend (the
 role the reference's JaxConfig plays on a TPU): every worker gang forms one
 ``torch.distributed`` process group — NCCL when the workers lease a GPU,
 gloo otherwise — which DDP, FSDP2 and the "nccl" collective backend ride.
+TensorflowConfig (tensorflow/config.py) only wires TF_CONFIG on each worker.
 """
 
 from __future__ import annotations
@@ -190,5 +191,64 @@ class _TorchBackend(Backend):
 
         try:
             worker_group.execute(_destroy)
+        except Exception:
+            pass
+
+
+# ---------------------------------------------------------------------------
+# TensorFlow backend (TF_CONFIG — API parity for reference workloads)
+# ---------------------------------------------------------------------------
+
+
+def _get_host() -> str:
+    return socket.gethostbyname(socket.gethostname())
+
+
+@dataclass
+class TensorflowConfig(BackendConfig):
+    """ray parity: train/tensorflow/config.py — wires the TF_CONFIG env var
+    (cluster spec + task index) on every worker so
+    tf.distribute.MultiWorkerMirroredStrategy discovers the gang."""
+
+    @property
+    def backend_cls(self):
+        return _TensorflowBackend
+
+
+def _tf_grab_port() -> str:
+    return f"{_get_host()}:{_free_port()}"
+
+
+def _tf_worker_setup(tf_config: Dict):
+    import json
+
+    os.environ["TF_CONFIG"] = json.dumps(tf_config)
+    return True
+
+
+class _TensorflowBackend(Backend):
+    def on_start(self, worker_group, config: TensorflowConfig):
+        import ray_tpu_torch
+
+        # one fan-out round trip, not N serialized ones
+        addrs = ray_tpu_torch.get(
+            [w.execute.remote(_tf_grab_port) for w in worker_group.workers],
+            timeout=300,
+        )
+        refs = []
+        for i, w in enumerate(worker_group.workers):
+            refs.append(w.execute.remote(_tf_worker_setup, {
+                "cluster": {"worker": addrs},
+                "task": {"type": "worker", "index": i},
+            }))
+        ray_tpu_torch.get(refs, timeout=300)
+
+    def on_shutdown(self, worker_group, config):
+        def _clear():
+            os.environ.pop("TF_CONFIG", None)
+            return True
+
+        try:
+            worker_group.execute(_clear)
         except Exception:
             pass

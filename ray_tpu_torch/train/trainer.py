@@ -1,7 +1,9 @@
-"""Trainers: BaseTrainer → DataParallelTrainer → TorchTrainer.
+"""Trainers: BaseTrainer → DataParallelTrainer → TorchTrainer (and the
+TensorflowTrainer and SklearnTrainer that wrap other libraries).
 
 ray parity: python/ray/train/base_trainer.py:68 (BaseTrainer.fit:569),
-data_parallel_trainer.py:58, torch/torch_trainer.py:16. The flagship is
+data_parallel_trainer.py:58, torch/torch_trainer.py:16,
+tensorflow/tensorflow_trainer.py:108, sklearn/sklearn_trainer.py. The flagship is
 TorchTrainer, the reference's NCCL-DDP path: each worker owns one CUDA card,
 the gang forms one process group, and gradient reduction runs inside the
 step (DDP's reducer or FSDP2's reduce-scatter).
@@ -174,5 +176,82 @@ class TorchTrainer(DataParallelTrainer):
         super().__init__(
             train_loop_per_worker,
             backend_config=tc,
+            **kwargs,
+        )
+
+
+class TensorflowTrainer(DataParallelTrainer):
+    """ray parity: train/tensorflow/tensorflow_trainer.py:108 — workers get
+    TF_CONFIG so MultiWorkerMirroredStrategy forms the collective ring.
+    (On GPU clusters the port's flagship is TorchTrainer; this keeps TF
+    workloads runnable for migration.)"""
+
+    def __init__(self, train_loop_per_worker, *,
+                 tensorflow_config: Optional["TensorflowConfig"] = None,
+                 **kwargs):
+        from ray_tpu_torch.train.backend import TensorflowConfig
+
+        super().__init__(
+            train_loop_per_worker,
+            backend_config=tensorflow_config or TensorflowConfig(),
+            **kwargs,
+        )
+
+
+class SklearnTrainer(DataParallelTrainer):
+    """ray parity: train/sklearn/sklearn_trainer.py — fit one sklearn
+    estimator on the full dataset on a single worker (sklearn has no
+    distributed fit; N workers would each fit a partial model on a shard);
+    the fitted model ships back as the checkpoint."""
+
+    def __init__(self, *, estimator, datasets: dict,
+                 label_column: str,
+                 scaling_config: Optional[ScalingConfig] = None,
+                 run_config: Optional[RunConfig] = None,
+                 fit_params: Optional[dict] = None, **kwargs):
+        import cloudpickle
+
+        if not datasets or "train" not in datasets:
+            raise ValueError("SklearnTrainer requires datasets={'train': ...}")
+        if not label_column:
+            raise ValueError("SklearnTrainer requires label_column")
+        scaling_config = scaling_config or ScalingConfig(num_workers=1)
+        if scaling_config.num_workers != 1:
+            raise ValueError(
+                "SklearnTrainer fits one estimator on the full dataset; "
+                f"num_workers must be 1, got {scaling_config.num_workers}"
+            )
+        est_blob = cloudpickle.dumps(estimator)
+        label = label_column
+        fit_params = fit_params or {}
+
+        def train_loop():
+            import cloudpickle as cp
+            import numpy as np
+
+            from ray_tpu_torch import train as train_mod
+            from ray_tpu_torch.air import Checkpoint
+
+            est = cp.loads(est_blob)
+            ds = train_mod.get_dataset_shard("train")
+            Xs, ys = [], []
+            for batch in ds.iter_batches(batch_size=4096,
+                                         batch_format="pandas"):
+                ys.append(batch[label].to_numpy())
+                Xs.append(batch.drop(columns=[label]).to_numpy())
+            X = np.concatenate(Xs)
+            y = np.concatenate(ys)
+            est.fit(X, y, **fit_params)
+            score = float(est.score(X, y))
+            train_mod.report(
+                {"train_score": score},
+                checkpoint=Checkpoint.from_dict({"model": cp.dumps(est)}),
+            )
+
+        super().__init__(
+            train_loop,
+            scaling_config=scaling_config,
+            run_config=run_config,
+            datasets=datasets,
             **kwargs,
         )

@@ -289,6 +289,19 @@ def test_fwd_p_rounding_keeps_the_16_bit_limits(dtype, split, breaks_limit):
         assert share < 0.3, share
 
 
+def test_zero_and_read_launches_cover_every_kernel(monkeypatch):
+    """The launch counters the smoke script and the tools read: one per
+    kernel of ``KERNELS``, read and zeroed together."""
+    from ray_tpu_torch.ops import attention as attn
+
+    for i, name in enumerate(attn.KERNELS):
+        monkeypatch.setattr(attn, f"{name}_launches", i + 1)
+    assert attn.read_launches() == {"flash_fwd": 1, "flash_bwd_dq": 2,
+                                    "flash_bwd_dkv": 3}
+    attn.zero_launches()
+    assert attn.read_launches() == dict.fromkeys(attn.KERNELS, 0)
+
+
 def test_library_path_follows_the_included_headers(tmp_path):
     """A shared header's edit must rebuild every source that includes it:
     the library's name hashes the headers beside the source too."""

@@ -9,7 +9,10 @@ Adam steps have moved the weights (their rounding piles up). Then the
 reference's cases of ``tests/test_rllib.py::test_bc_clones_expert`` and
 the MARWIL and CQL cases of ``tests/test_rllib_extra_algos.py``, through
 ``ray_tpu_torch.rllib`` with the learner on the CPU, at their seeds, bars
-and marks.
+and marks. Beside the gated MARWIL climb on the port's recording, the
+same climb on the reference's recording (made by the JAX package in a
+fixture) runs ungated, and the PPO expert is held to the reference's on
+shared action draws.
 """
 
 import os
@@ -316,6 +319,38 @@ def test_bc_reads_a_dataset_of_obs_and_actions(cluster, expert_dataset):
         algo.stop()
 
 
+@pytest.fixture(scope="module")
+def reference_expert_dataset(tmp_path_factory):
+    """The reference's own fixture (``tests/test_rllib_extra_algos.py``):
+    its PPO expert, trained and recorded by the JAX package on a reference
+    cluster beside the port's."""
+    import ray_tpu
+    from ray_tpu.rllib import PPOConfig
+
+    ray_tpu.init(num_cpus=2)
+    try:
+        expert = (
+            PPOConfig()
+            .environment("CartPole-native")
+            .env_runners(num_env_runners=1, rollout_fragment_length=512)
+            .training(num_epochs=6, minibatch_size=128)
+            .build()
+        )
+        for _ in range(8):
+            expert.train()
+        recorded = ray_tpu.get(
+            [expert.runners[0].sample.remote(512) for _ in range(2)],
+            timeout=300,
+        )
+        path = joffline.write_json(
+            recorded,
+            str(tmp_path_factory.mktemp("offline_ref") / "expert.jsonl"))
+        expert.stop()
+    finally:
+        ray_tpu.shutdown()
+    return path
+
+
 @_stochastic_learning
 def test_marwil_beats_random(cluster, expert_dataset):
     """Gated as the reference gates its CQL climb: whether the greedy
@@ -334,6 +369,45 @@ def test_marwil_beats_random(cluster, expert_dataset):
     score = algo.evaluate()["evaluation"]["episode_return_mean"]
     algo.stop()
     assert score > 50, score
+
+
+def test_marwil_beats_random_on_the_reference_recording(
+        cluster, reference_expert_dataset):
+    """The reference's case, ungated, on the recording that the reference's
+    own case learns from: the port's MARWIL and evaluation clear the same
+    bar of 50 on the same data."""
+    algo = _cpu(
+        trl.MARWILConfig()
+        .environment("CartPole-native")
+        .offline_data(input_=reference_expert_dataset)
+        .training(num_epochs=20, minibatch_size=256, lr=3e-3)
+    ).build()
+    for _ in range(3):
+        m = algo.train()
+    assert np.isfinite(m["policy_loss"])
+    score = algo.evaluate()["evaluation"]["episode_return_mean"]
+    algo.stop()
+    assert score > 50, score
+
+
+def test_ppo_expert_tracks_the_reference_on_shared_draws():
+    """The expert fixtures' PPO (``tests/torch_rl_seeds.py``) through both
+    packages from the reference's starting weights, every exploration
+    action taken from one numpy stream: the first two training fragments,
+    sampled before and after one whole PPO update (24 Adam steps), hold the
+    same 512 actions each in both packages. A difference in the runner,
+    GAE, the loss, the clip, Adam or the weight sync would move the
+    policy's probabilities far more than the ~1e-6 that f32 rounding does,
+    and flip actions. (Later fragments part: once a sample's ratio lies
+    within the rounding of the PPO clip's bound, one package clips it and
+    the other does not; ``tests/torch_rl_seeds.py --drift 0`` shows
+    where.)"""
+    from tests import torch_rl_seeds
+
+    want = torch_rl_seeds.expert("ref", 0, shared_draws=True, iterations=2)
+    got = torch_rl_seeds.expert("port", 0, shared_draws=True, iterations=2)
+    assert got["actions"] == want["actions"]
+    assert got["iter_dones"] == want["iter_dones"] == [28, 21]
 
 
 def test_marwil_beta_zero_is_bc(cluster, expert_dataset):

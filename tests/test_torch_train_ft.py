@@ -478,7 +478,7 @@ def test_kernel_build_is_a_compile_event_in_the_session_ring(
 
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
-    monkeypatch.setattr(_build.subprocess, "run", fake_nvcc)
+    monkeypatch.setattr(subprocess, "run", fake_nvcc)
     monkeypatch.setattr(steptrace, "_compile_listener_installed", False)
     steptrace.reset()
     source = tmp_path / "fake_kernel.cu"
