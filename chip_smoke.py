@@ -142,8 +142,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    rows, k_len 512, D 128) and decode (B*H 128, Sq 1, cache 544, k_len
    543, D 128) shapes, and all three kernels at GPT-2's training shape
    (B*H 192, S 1024, D 64, causal, bf16), Llama's (B*H 64, S 2048, D 128)
-   ViT-B/16's (B*H 768, S 197, D 64, non-causal) and the MoE LM's (GPT-2's
-   training shape, the MoE path's launches), each held to the
+   ViT-B/16's (B*H 768, S 197, D 64, non-causal), the MoE LM's (GPT-2's
+   training shape, the MoE path's launches) and phase 36's gang's (a
+   rank's half of GPT-2's batch: B*H 96, S 1024, D 64, causal), each held
+   to the
    bf16 ``TOLS`` element by element
    (the line prints the tolerance and the largest error's share of its
    limit), with an estimate of attention's share of each training step.
@@ -204,21 +206,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    at the end). ``TorchTrainer(ScalingConfig(num_workers=1, use_gpu=True))``
    with ``TorchConfig()`` (NCCL) runs phase 8's configuration, seed-0
    weights and batch in a worker the raylet spawned: ``create_mesh``, DDP
-   by ``shard_train_state``, ``build_train_step(mesh=...)``, 5 reported
-   steps, a ``save_pytree`` checkpoint directory at steps 1 and 4
+   by ``shard_train_state``, ``build_train_step(mesh=...)``, 3 reported
+   steps, a ``save_pytree`` checkpoint directory at step 1
    (``CheckpointConfig(num_to_keep=1)``). Checks: the worker's backend is
    "nccl", its pid is not the driver's, its card is ``nvidia-smi``'s, each
    loss is within 1e-2 of phase 8's at that step, and its launch counts are
    exactly 12 x steps of each kernel with no call of their plain versions.
-   Then a second ``fit()`` resumes from the step-1 checkpoint (steps 2-4
-   within 1e-3 of the first run's); a third, with ``FailureConfig(
-   max_failures=1)``, SIGKILLs its worker once at step 2 and recovers at
-   generation 1 from the step-1 checkpoint (one more
-   ``train_restarts_total``, the same losses within 1e-3, the killed pid
-   no longer running); a fourth runs 2 steps with
+   Then a second, with ``FailureConfig(max_failures=1)``, SIGKILLs its
+   worker once at step 2 and recovers at generation 1 from the step-1
+   checkpoint (one more ``train_restarts_total``, the same losses within
+   1e-3, the killed pid no longer running); a third runs 2 steps with
    ``TorchConfig(ingraph_psum="quantized")`` (the int8 DDP hook over NCCL;
-   loss within 5e-2). No process of the session is left after shutdown.
-   Prints the worker's step ms (median of steps 2-5) beside phase 8's,
+   loss within 5e-2), first running phase 36 (c)'s "nccl" ops in its
+   worker. No process of the session is left after shutdown.
+   Prints the worker's step ms (median of steps 2-3) beside phase 8's,
    tokens/s, ``init`` s, each gang's start s and process-group s, the first
    step's s, each checkpoint's write s and size, ``train_recovery_seconds``
    and the worker's peak memory.
@@ -227,12 +228,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``tools/tune_runs.asha_tuner`` builds
    ``Tuner(TorchTrainer(tune_runs.vit_trial_loop, ScalingConfig(
    num_workers=1, resources_per_worker={"CPU": 1, "GPU": 0.25})))`` over a
-   grid of 8 learning rates with ASHA (``max_t`` 8, ``grace_period`` 2,
+   grid of 4 learning rates with ASHA (``max_t`` 8, ``grace_period`` 2,
    ``reduction_factor`` 2) and ``max_concurrent_trials=4``: each trial
    trains phase 13's model, weights and batch at its lr in a worker of its
    own on the card (an NCCL group of one on ``cuda:0``), four at a time,
    one report per step; each worker zeroes its launch counts before its
-   first step. Checks: 8 trials, no error; each trial's launches exactly 12
+   first step. Checks: 4 trials, no error; each trial's launches exactly 12
    x its iterations of each kernel, no plain-version call, no kernel build
    in the worker (phase 2 built them); finite losses; the lr 1e-4 trial's
    first 5 losses within 1e-2 of phase 13's (the line says whether they
@@ -472,6 +473,46 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    card in a process of its own; no process of the session is left.
    Prints each step's seconds, kill to resume, the resumed run's seconds,
    the queue's round trip per prompt and the launches.
+36. gang_data_plane (after phase 35; ``GANG``): in its own cluster (4
+   CPUs, 1 GPU). (a) Objects: a writer actor at ``num_gpus=0.5`` builds
+   GPT-2-124M's parameters on the card from phase 8's seed (124.4 M f32,
+   497.8 MB) and puts them twice, as a dict of CUDA tensors and as numpy;
+   a second card actor, the driver and an actor at ``num_gpus=0`` with
+   ``CUDA_VISIBLE_DEVICES=""`` read both, the three at once. Checks: every read equal to the
+   bit (sha256 over names, dtypes, shapes and bytes); tensors rebuilt on
+   the card by the card readers and on the CPU by the hidden one; numpy
+   reads zero-copy (read-only); torch's own pickle of a CUDA tensor raises
+   in the hidden reader (why ``_private/serialization.py`` carries CUDA
+   tensors as host bytes); ``object_summary`` lists both objects with this
+   file as their call site; the store drops both once the refs are gone.
+   (b) GradSync: ``TorchTrainer`` with two workers at ``{"GPU": 0.5}``,
+   ``TorchConfig(backend="gloo")`` and ``overlap_grads=True`` runs
+   ``tools/gang_runs.gradsync_loop``: phase 8's model, weights and AdamW,
+   each rank its half (8 x 1024) of phase 8's batch, 3 steps, every
+   gradient submitted to ``GradSync`` from a post-accumulate hook, mean-
+   reduced over the store collective's ``train_dp`` group at the default
+   ``collective_chunk_bytes`` and copied back to the card; then the same
+   for 2 steps with ``collective_quant="int8"``. Checks: the ranks' mean
+   f32 losses within 1e-2 of phase 8's first 3, the int8 ones within 5e-2
+   of its first 2; rank 0's f32-reduced step-1 gradient within
+   ``GANG["grad_limit"]`` of the whole batch's taken in the driver, per
+   parameter, where twice it (a sum) and rank 0's own (no reduction) are
+   not, and within ``GANG["halves_limit"]`` of the mean of each rank's
+   gradient taken in the driver; step 1's int8-reduced gradients within
+   the reference's analytic bound of the f32-reduced ones, per parameter;
+   ``steptrace_summary`` has ``train_dp`` rows with chunk records and no
+   missing rank, and a collective interval overlapping its rank's
+   ``compute`` phase, in each fit; the int8 wire below its logical bytes;
+   ``train_timeline`` writes a trace with both ranks; each worker launched
+   each kernel 12 x steps times. (c) The "nccl"
+   backend: phase 20's quantized fit (an NCCL gang of one) runs
+   ``allreduce``, ``allgather``, ``reducescatter`` and ``broadcast`` of
+   CUDA tensors through ``init_collective_group(..., backend="nccl")``:
+   each result on the card (allreduce and broadcast in place) and equal to
+   the store backend's on the same inputs. Prints the put and get seconds
+   and GB/s of each form per reader, step ms, allreduce and exposed
+   seconds per step, wire and logical bytes of each fit, and the int8
+   check's worst error over its bound and the gradient gaps' worst.
 
 Every phase raises on a failed check; no failure is caught.
 
@@ -490,7 +531,10 @@ autoscaled replicas' (``serve_autoscaled_replicas``), and phase 35's: the
 training shape's with the workflow's train step's launches
 (``workflow_train_step``) and the serving shape's ``flash_fwd`` with the
 serve step's (``workflow_serve_step``) and the queue consumer's
-(``queue_consumer``). Then one line with
+(``queue_consumer``); phase 15 also times the three kernels at the gang's
+shape (B*H 96: 8 rows x 12 heads, S 1024, D 64, causal), whose row
+(``gang_train``) takes the launches phase 36's workers counted. Then one
+line with
 each phase's seconds. The last two lines are the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
@@ -1911,9 +1955,52 @@ def phase_serve_run(smi, bf16_streams):
 
 
 # Phase 20: GPT-2-124M trained by TorchTrainer.fit() from a worker gang
-# (3 steps and one checkpoint: the depth cut to keep the whole script in
-# its time; the resumed and recovered runs each take step 2 again)
+# (3 steps and one checkpoint; the recovered run restores the step-1
+# checkpoint and takes step 2 again)
 TRAIN_FIT = {"steps": 3, "ckpt_at": (1,), "kill_at": 2, "quant_steps": 2}
+
+
+def _nccl_collective_ops():
+    """Phase 36 (c), in a worker of a gang over NCCL (phase 20's quantized
+    fit, world size 1): ``allreduce``, ``allgather``, ``reducescatter`` and
+    ``broadcast`` of CUDA tensors through ``init_collective_group(...,
+    backend="nccl")``, each against the store backend's result on the same
+    inputs: {op: {"on_card", "in_place", "equal_store", "max_abs_diff"}}."""
+    from ray_tpu_torch.util import collective as col
+
+    col.init_collective_group(1, 0, backend="nccl", group_name="fit_nccl")
+    col.init_collective_group(1, 0, backend="store", group_name="fit_store")
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    x = torch.randn((8, 1024), generator=gen, device="cuda")
+    calls = {"allreduce": lambda t, g: col.allreduce(t, g, op="mean"),
+             "allgather": lambda t, g: col.allgather(t, g),
+             "reducescatter": lambda t, g: col.reducescatter(t, g),
+             "broadcast": lambda t, g: col.broadcast(t, src_rank=0,
+                                                     group_name=g)}
+    out = {}
+    try:
+        for op, call in calls.items():
+            t = x.clone()
+            got = call(t, "fit_nccl")
+            want = call(x.clone(), "fit_store")
+            parts = got if isinstance(got, list) else [got]
+            wants = want if isinstance(want, list) else [want]
+            torch.cuda.synchronize()
+            # the store path hands back numpy, but the source rank of a
+            # broadcast keeps its own tensor
+            host = lambda v: v.cpu().numpy() if isinstance(
+                v, torch.Tensor) else np.asarray(v)
+            diff = max(float(np.abs(host(p) - host(w)).max())
+                       for p, w in zip(parts, wants))
+            out[op] = {"on_card": all(p.is_cuda for p in parts),
+                       "in_place": got is t,
+                       "equal_store": len(parts) == len(wants)
+                       and diff == 0.0,
+                       "max_abs_diff": diff}
+    finally:
+        col.destroy_collective_group("fit_nccl")
+        col.destroy_collective_group("fit_store")
+    return out
 
 
 def _fit_loop(config):
@@ -1963,6 +2050,7 @@ def _fit_loop(config):
         1, train_runs.BATCH, train_runs.SEQ, cfg.vocab_size), mesh)
     t_ready = _time.time()
     dev = _torch.cuda.current_device()
+    nccl_ops = _nccl_collective_ops() if config.get("nccl_ops") else None
     with train_runs.counting_plain_calls() as plain_calls:
         for i in range(start, config["steps"]):
             if i == config.get("kill_at") and \
@@ -1994,6 +2082,8 @@ def _fit_loop(config):
                 "kernel_builds": sum(r["kind"] == "compile"
                                      for r in steptrace.snapshot()),
             }
+            if nccl_ops is not None and i == start:
+                metrics["nccl_ops"] = nccl_ops
             ckpt = None
             if i in config["ckpt_at"]:
                 t0 = _time.perf_counter()
@@ -2045,9 +2135,10 @@ def _timed_gang_start(times):
 def phase_train_fit(smi, bf16_losses, inproc_step_ms):
     """GPT-2-124M trained by ``TorchTrainer.fit()`` from a worker the
     port's raylet spawned, over NCCL: phase 8's run (``bf16_losses``, its
-    in-process step ``inproc_step_ms``), then a resume from the step-1
-    checkpoint, a SIGKILLed worker recovered at generation 1, and 2 steps
-    with the int8 gradient hook."""
+    in-process step ``inproc_step_ms``), then a SIGKILLed worker recovered
+    at generation 1 from the step-1 checkpoint, and 2 steps with the int8
+    gradient hook, at whose start the worker runs phase 36 (c)'s "nccl"
+    ops (returned)."""
     import os
     import shutil
     import tempfile
@@ -2073,7 +2164,7 @@ def phase_train_fit(smi, bf16_losses, inproc_step_ms):
     h0 = recovery.default._series()
     gang_times, runs = [], {}
 
-    def fit(name, steps, resume=None, max_failures=0, mode="",
+    def fit(name, steps, max_failures=0, mode="",
             ckpt_at=TRAIN_FIT["ckpt_at"], **extra):
         reports = []
         config = dict(steps=steps, ckpt_at=ckpt_at,
@@ -2089,8 +2180,7 @@ def phase_train_fit(smi, bf16_losses, inproc_step_ms):
                 name=name, storage_path=os.path.join(root, "results"),
                 checkpoint_config=train.CheckpointConfig(num_to_keep=1),
                 failure_config=train.FailureConfig(
-                    max_failures=max_failures)),
-            resume_from_checkpoint=resume)
+                    max_failures=max_failures)))
         t0 = time.perf_counter()
         with _timed_gang_start(gang_times):
             trainer._fit_impl = _recording(trainer._fit_impl, reports,
@@ -2105,16 +2195,13 @@ def phase_train_fit(smi, bf16_losses, inproc_step_ms):
     try:
         steps = TRAIN_FIT["steps"]
         run1 = fit("fit", steps)
-        step1 = train.Checkpoint.from_directory(
-            os.path.join(run1["config"]["ckpt_root"], "step_1"))
-        run2 = fit("resume", steps, resume=step1)
         # each checkpoint is ~1.5 GB: keep none that no later run reads
         shutil.rmtree(os.path.join(root, "ckpt"))
         shutil.rmtree(os.path.join(root, "results"))
         run3 = fit("recover", steps, max_failures=1,
                    kill_at=TRAIN_FIT["kill_at"])
         run4 = fit("quantized", TRAIN_FIT["quant_steps"], mode="quantized",
-                   ckpt_at=())
+                   ckpt_at=(), nccl_ops=True)
     finally:
         rt.shutdown()
         shutil.rmtree(root, ignore_errors=True)
@@ -2125,7 +2212,6 @@ def phase_train_fit(smi, bf16_losses, inproc_step_ms):
     step_ms = [r["step_ms"] for r in rep1]
     worker_ms = statistics.median(step_ms[1:])
     vs_phase8 = max(abs(a - b) for a, b in zip(losses, bf16_losses))
-    resumed = [r["loss"] for r in run2["reports"]]
     recovered = [r for r in run3["reports"]
                  if r["pid"] != run3["reports"][0]["pid"]]
     killed_pid = run3["reports"][0]["pid"]
@@ -2146,7 +2232,7 @@ def phase_train_fit(smi, bf16_losses, inproc_step_ms):
          worker_step_ms_each=step_ms, inproc_step_ms=inproc_step_ms,
          tokens_per_s=train_runs.BATCH * train_runs.SEQ / worker_ms * 1e3,
          losses=losses, phase8_losses=bf16_losses[:steps],
-         max_loss_diff_vs_phase8=vs_phase8, resumed_losses=resumed,
+         max_loss_diff_vs_phase8=vs_phase8,
          recovered_losses=[r["loss"] for r in recovered],
          quantized_losses=quant, quantized_step_ms_each=quant_ms,
          quantized_vs_run1_step2_ms=[quant_ms[-1], step_ms[len(quant_ms) - 1]],
@@ -2188,9 +2274,6 @@ def phase_train_fit(smi, bf16_losses, inproc_step_ms):
         problems.append(f"fit reported steps {[r['step'] for r in rep1]}")
     if not (all(math.isfinite(x) for x in losses) and vs_phase8 <= 1e-2):
         problems.append(f"losses {losses} vs phase 8's {bf16_losses[:steps]}")
-    if [r["step"] for r in run2["reports"]] != list(range(2, steps)) or \
-            max(abs(a - b) for a, b in zip(resumed, losses[2:])) > 1e-3:
-        problems.append(f"resume: {resumed} vs {losses[2:]}")
     rec_losses = [r["loss"] for r in recovered]
     if [r["step"] for r in recovered] != list(range(2, steps)) or \
             max(abs(a - b) for a, b in zip(rec_losses, losses[2:])) > 1e-3:
@@ -2206,6 +2289,7 @@ def phase_train_fit(smi, bf16_losses, inproc_step_ms):
         problems.append(f"session processes left after shutdown: {left}")
     if problems:
         raise AssertionError("train_fit: " + "; ".join(problems))
+    return run4["reports"][0]["nccl_ops"]
 
 
 def _alive(pid):
@@ -2239,10 +2323,11 @@ def _recording(fit_impl, reports, ack):
 
 
 # Phase 21: Tune's ASHA over the lr of ViT-B/16 trials, four at a time on
-# the card. The grid's order is chosen: each wave of four holds a spread of
-# rates, and the last two barely move the loss, so ASHA has trials to stop
-# at rung 2 once the first wave has recorded there. 1e-4 is phase 13's lr.
-TUNE_ASHA = {"lrs": (1e-4, 1e-3, 3e-5, 3e-4, 1e-5, 5e-4, 3e-6, 1e-7),
+# the card: one wave (the depth cut from two to keep the whole script in
+# its time). Two rates of the grid barely move the loss, so ASHA has
+# trials to stop at its rungs unless the four arrive best last at every
+# rung. 1e-4 is phase 13's lr.
+TUNE_ASHA = {"lrs": (1e-4, 1e-3, 3e-6, 1e-7),
              "max_t": 8, "grace_period": 2, "reduction_factor": 2,
              "concurrent": 4, "gpu": 0.25, "phase13_lr": 1e-4,
              "vs_phase13_steps": 5, "vs_phase13_limit": 1e-2}
@@ -2260,7 +2345,7 @@ def _max_overlap(spans):
 
 def phase_tune_asha(smi, vit_losses, vit_step_ms):
     """``Tuner(TorchTrainer(tune_runs.vit_trial_loop)).fit()``: ASHA over
-    the lr of 8 ViT-B/16 trials at full width, each a gang of one worker
+    the lr of 4 ViT-B/16 trials at full width, each a gang of one worker
     leasing a quarter of the card, 4 at a time (phase 13's weights, batch
     and model; ``vit_losses`` and ``vit_step_ms`` are phase 13's)."""
     import shutil
@@ -4553,6 +4638,433 @@ def phase_parallel_train(bf16_losses, bf16_step_ms, moe_train,
         "pp_step_ms": fields["pp"]["step_ms_median_after_first"]}
 
 
+# Phase 36: the port's data plane under a gang. Two ranks share the card at
+# half a GPU each and take phase 8's batch of 16 in halves of 8 rows; f32
+# losses within phase 8's 1e-2 (phases 27 and 33), int8 within 5e-2
+# (phase 20's quantized fit). Rank 0's reduced step-1 gradient came within
+# 0.0772 of the whole batch's on the H100 (80GB HBM3, 700 W; h.9.ln_1.bias,
+# worst of 148), as the mean of the ranks' own gradients taken in one
+# process does, to the bit: bf16 products summed over half the rows. A sum
+# is 0.90-1.04 off and no reduction up to 0.99, so "grad_limit" is 0.2. The
+# reduced gradient equals that in-process mean to the bit on the H100 and
+# on the CPU; "halves_limit" leaves room for an f32 sum in another order.
+GANG = {"ranks": 2, "gpu": 0.5, "rows": 8, "steps": {"f32": 3, "int8": 2},
+        "f32_limit": 1e-2, "int8_limit": 5e-2, "grad_limit": 0.2,
+        "halves_limit": 1e-6}
+
+
+def _state_digest(state):
+    """sha256 over a {name: tensor or numpy array} state: each name, dtype,
+    shape and byte, names in order."""
+    h = hashlib.sha256()
+    for name in sorted(state):
+        v = state[name]
+        arr = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+        h.update(f"{name}:{arr.dtype}:{arr.shape};".encode())
+        h.update(memoryview(np.ascontiguousarray(arr)).cast("B"))
+    return h.hexdigest()
+
+
+class ObjectWriter:
+    """Phase 36 (a)'s writer: GPT-2's parameters from phase 8's seed on its
+    device, put twice, as a dict of tensors and as a dict of numpy arrays.
+    The puts are made here, so the memory summary names this file as their
+    call site."""
+
+    def build(self, model, device):
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.tools import gang_runs
+
+        net = gpt2.init_params(gang_runs._config(model),
+                               torch.Generator().manual_seed(0),
+                               device=device)
+        self.state = {n: p.detach() for n, p in net.named_parameters()}
+        self.device = torch.device(device)
+        self.refs = None
+        return {"digest": _state_digest(self.state),
+                "params": sum(t.numel() for t in self.state.values()),
+                "bytes": sum(t.numel() * t.element_size()
+                             for t in self.state.values()),
+                "device": str(next(iter(self.state.values())).device),
+                "pid": os.getpid()}
+
+    def put_both(self):
+        import ray_tpu_torch as rt
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tensors = rt.put(self.state)
+        put_tensors_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = {n: t.cpu().numpy() for n, t in self.state.items()}
+        to_host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arrays = rt.put(host)
+        put_numpy_s = time.perf_counter() - t0
+        self.refs = [tensors, arrays]
+        return {"refs": [tensors, arrays], "put_tensors_s": put_tensors_s,
+                "to_host_s": to_host_s, "put_numpy_s": put_numpy_s}
+
+    def torch_pickle(self):
+        """A small tensor on this device as torch itself pickles it."""
+        import pickle
+
+        return pickle.dumps(torch.arange(4.0, device=self.device))
+
+    def drop(self):
+        self.refs = None
+        return True
+
+
+class ObjectReader:
+    """Phase 36 (a)'s reader: ``get`` of both forms, timed, each digested;
+    which device the tensors land on, whether the arrays are writeable."""
+
+    def read(self, refs):
+        import ray_tpu_torch as rt
+
+        card = torch.cuda.is_available()
+        out = {"pid": os.getpid(), "card_visible": card}
+        t0 = time.perf_counter()
+        got = rt.get(refs[0], timeout=300)
+        if card:
+            torch.cuda.synchronize()
+        out["get_tensors_s"] = time.perf_counter() - t0
+        out["tensor_devices"] = sorted({t.device.type for t in got.values()})
+        out["tensor_types"] = sorted({type(t).__name__ for t in got.values()})
+        out["tensor_digest"] = _state_digest(got)
+        del got
+        t0 = time.perf_counter()
+        arrays = rt.get(refs[1], timeout=300)
+        out["get_numpy_s"] = time.perf_counter() - t0
+        out["numpy_types"] = sorted({type(a).__name__
+                                     for a in arrays.values()})
+        # the store keeps buffers of 512 bytes and more out of band, and
+        # hands those back as read-only views of its memory
+        out["numpy_writeable"] = sum(a.flags.writeable and a.nbytes >= 512
+                                     for a in arrays.values())
+        out["numpy_in_band"] = sum(a.nbytes < 512 for a in arrays.values())
+        out["numpy_digest"] = _state_digest(arrays)
+        del arrays
+        return out
+
+    def load_torch_pickle(self, blob):
+        import pickle
+
+        try:
+            return {"raised": None, "device": str(pickle.loads(blob).device)}
+        except Exception as e:  # what torch's own pickle does here
+            return {"raised": f"{type(e).__name__}: {e}"[:300]}
+
+
+def gang_objects(model="gpt2_124m", device="cuda", card_gpu=GANG["gpu"]):
+    """Phase 36 (a) in a running cluster: (fields, problems). A writer
+    actor at ``card_gpu`` of a card builds ``model``'s parameters on
+    ``device`` and puts both forms; a second card actor, the driver and an
+    actor at ``num_gpus=0`` with the card hidden read them. ``card_gpu=0``
+    and ``device="cpu"`` rehearse it on the CPU."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import state
+
+    on_card = device != "cpu"
+    writer = rt.remote(num_gpus=card_gpu)(ObjectWriter).remote()
+    card_reader = rt.remote(num_gpus=card_gpu)(ObjectReader).remote()
+    hidden = rt.remote(num_gpus=0, runtime_env={"env_vars": {
+        "CUDA_VISIBLE_DEVICES": ""}})(ObjectReader).remote()
+    t0 = time.perf_counter()
+    built = rt.get(writer.build.remote(model, device), timeout=300)
+    build_s = time.perf_counter() - t0
+    put = rt.get(writer.put_both.remote(), timeout=300)
+    refs = put.pop("refs")
+    # the three readers read at once: each one's GB/s is under the others'
+    t0 = time.perf_counter()
+    pending = {"card_actor": card_reader.read.remote(refs),
+               "hidden_actor": hidden.read.remote(refs)}
+    reads = {"driver": ObjectReader().read(refs)}
+    reads.update({name: rt.get(ref, timeout=300)
+                  for name, ref in pending.items()})
+    reads_s = time.perf_counter() - t0
+    torch_pickle = rt.get(hidden.load_torch_pickle.remote(
+        rt.get(writer.torch_pickle.remote(), timeout=60)), timeout=60)
+    ids = [r.binary().hex() for r in refs]
+    summary = state.object_summary(group_by="callsite")
+    rows = {r["object_id"]: r for r in summary["objects"]}
+    listed = {oid: {"state": rows[oid]["state"], "size": rows[oid]["size"],
+                    "callsite": rows[oid].get("callsite")}
+              for oid in ids if oid in rows}
+    del refs
+    rt.get(writer.drop.remote(), timeout=60)
+    t0 = time.perf_counter()
+    deadline = time.time() + 60
+    left = ids
+    while left and time.time() < deadline:
+        present = {r["object_id"] for r in
+                   state.object_summary()["objects"]}
+        left = [oid for oid in ids if oid in present]
+        if left:
+            time.sleep(0.5)
+    freed_s = time.perf_counter() - t0
+    for actor in (writer, card_reader, hidden):
+        rt.kill(actor)
+    nbytes = built["bytes"]
+    gbps = lambda s: nbytes / s / 1e9
+    fields = {
+        "params": built["params"], "bytes": nbytes,
+        "writer_device": built["device"], "build_s": build_s,
+        "reads_s": reads_s,
+        "put_tensors_s": put["put_tensors_s"],
+        "put_tensors_gb_per_s": gbps(put["put_tensors_s"]),
+        "to_host_s": put["to_host_s"], "put_numpy_s": put["put_numpy_s"],
+        "put_numpy_gb_per_s": gbps(put["put_numpy_s"]),
+        "reads": {name: dict(
+            r, get_tensors_gb_per_s=gbps(r["get_tensors_s"]),
+            get_numpy_gb_per_s=gbps(r["get_numpy_s"]))
+            for name, r in reads.items()},
+        "torch_pickle_in_hidden_reader": torch_pickle,
+        "summary_rows": listed, "freed_after_s": freed_s,
+        "left_in_store": left}
+    problems = []
+    card_type = "cuda" if on_card else "cpu"
+    if built["device"].split(":")[0] != card_type:
+        problems.append(f"the writer built on {built['device']}")
+    for name, r in reads.items():
+        if r["tensor_digest"] != built["digest"]:
+            problems.append(f"{name}: the tensors read differ from those put")
+        if r["numpy_digest"] != built["digest"]:
+            problems.append(f"{name}: the arrays read differ from those put")
+        if r["numpy_writeable"]:
+            problems.append(f"{name}: {r['numpy_writeable']} arrays are "
+                            "writeable (not zero-copy reads)")
+        want = "cpu" if name == "hidden_actor" else card_type
+        if r["tensor_devices"] != [want] or r["tensor_types"] != ["Tensor"]:
+            problems.append(f"{name}: tensors {r['tensor_types']} on "
+                            f"{r['tensor_devices']}, want Tensor on {want}")
+    if reads["hidden_actor"]["card_visible"]:
+        problems.append("the hidden reader sees a card")
+    if on_card and not reads["card_actor"]["card_visible"]:
+        problems.append("the card reader sees no card")
+    if on_card and torch_pickle["raised"] is None:
+        problems.append("torch's own pickle of a CUDA tensor loaded where the "
+                        f"card is hidden: {torch_pickle}")
+    for oid in ids:
+        row = listed.get(oid)
+        if row is None or "chip_smoke.py" not in (row["callsite"] or ""):
+            problems.append(f"the memory summary lists {oid} as {row}")
+    if left:
+        problems.append(f"the store still holds {left} after the refs went")
+    return fields, problems
+
+
+def gang_gradsync(root, model="gpt2_124m", device="cuda", seq=None,
+                  resources=None, use_gpu=True, chunk_bytes=None,
+                  rows=GANG["rows"]):
+    """Phase 36 (b) in a running cluster: the f32 fit and the int8 fit of
+    ``tools/gang_runs.gradsync_loop``; returns both fits' results, the int8
+    bound's (fields, problems) and step-1 gradient gaps
+    (``gang_runs.grad_gaps``) to the whole batch's gradient taken here in
+    one process: "mean" of rank 0's reduced gradient, "sum" and "rank0" of
+    what a reduction that sums or none would have left it, "halves" of the
+    mean of each rank's gradient taken here; and "mean_vs_halves", the
+    reduced gradient against that mean."""
+    import torch
+
+    from ray_tpu_torch.tools import gang_runs, train_runs
+
+    resources = resources or {"CPU": 1, "GPU": GANG["gpu"]}
+    seq = seq or train_runs.SEQ
+    base = dict(model=model, device=device, rows=rows, seq=seq,
+                ranks=GANG["ranks"], chunk_bytes=chunk_bytes)
+    ref_path = os.path.join(root, "f32", "f32_step1.pt")
+    fits = {}
+    for name, quant in (("f32", ""), ("int8", "int8")):
+        config = dict(base, out_dir=os.path.join(root, name),
+                      steps=GANG["steps"][name],
+                      capture="int8" if quant else "reduced",
+                      ref_path=ref_path)
+        fits[name] = gang_runs.gradsync_fit(
+            config, quant, resources, use_gpu, f"gang_{name}")
+    bound = gang_runs.int8_bound_problems(os.path.join(root, "int8"),
+                                          GANG["ranks"])
+    reduced = torch.load(ref_path)
+    grads = gang_runs.step1_grads(model, device, seq, rows, GANG["ranks"])
+    whole, ranks = grads["whole"], grads["ranks"]
+    halves = {n: sum(g[n] for g in ranks) / len(ranks) for n in whole}
+    gaps = {"mean": gang_runs.grad_gaps(reduced, whole),
+            "sum": gang_runs.grad_gaps(
+                {n: 2 * r for n, r in reduced.items()}, whole),
+            "rank0": gang_runs.grad_gaps(ranks[0], whole),
+            "halves": gang_runs.grad_gaps(halves, whole),
+            "mean_vs_halves": gang_runs.grad_gaps(reduced, halves)}
+    return fits, bound, gaps
+
+
+def _gang_problems(fits, bound, gaps, grad_limit, bf16_losses, n_layer,
+                   card):
+    """The checks of phase 36 (b) on ``gang_gradsync``'s results: (fields,
+    problems). Rank 0's reduced step-1 gradient lies within ``grad_limit``
+    of the whole batch's, per parameter, and a sum or no reduction would
+    not ("sum", "rank0"); it lies within ``GANG["halves_limit"]`` of the
+    mean of the ranks' own gradients taken in one process."""
+    from ray_tpu_torch.tools import gang_runs
+
+    fields, problems = {}, list(bound[1])
+    worst = {k: max(g.items(), key=lambda kv: kv[1]) for k, g in gaps.items()}
+    fields["reduced_vs_whole_step1"] = {
+        "limit": grad_limit, "params_checked": len(gaps["mean"]),
+        **{f"worst_{k}": {"param": n, "rel_err": e}
+           for k, (n, e) in worst.items()}}
+    problems += [f"{n}: reduced step-1 gradient {e} off the whole batch's "
+                 f"(limit {grad_limit})" for n, e in gaps["mean"].items()
+                 if not e <= grad_limit]
+    problems += [f"{n}: reduced step-1 gradient {e} off the mean of the "
+                 f"ranks' own (limit {GANG['halves_limit']})"
+                 for n, e in gaps["mean_vs_halves"].items()
+                 if not e <= GANG["halves_limit"]]
+    problems += [f"the gradient check would pass a reduction giving {k}: "
+                 f"worst {worst[k][1]} within {grad_limit}"
+                 for k in ("sum", "rank0") if not worst[k][1] > grad_limit]
+    for name, fit in fits.items():
+        recs = fit["records"]
+        steps = GANG["steps"][name]
+        losses = [statistics.fmean(r[i]["loss"] for r in recs)
+                  for i in range(steps)]
+        gap = max(abs(a - b) for a, b in zip(losses, bf16_losses))
+        limit = GANG["f32_limit"] if name == "f32" else GANG["int8_limit"]
+        missing = [row["seq"] for row in fit["rows"] if row["missing"]]
+        launches = [r[-1]["launches"] for r in recs]
+        fields[name] = {
+            "losses": losses, "rank_losses": [[x["loss"] for x in r]
+                                              for r in recs],
+            "max_loss_gap_vs_phase8": gap,
+            "step_ms": [[x["step_ms"] for x in r] for r in recs],
+            "allreduce_s": [[x["allreduce_s"] for x in r] for r in recs],
+            "exposed_allreduce_s": [[x["exposed_s"] for x in r]
+                                    for r in recs],
+            **{f"{k}_bytes": v for k, v in
+               gang_runs.wire_bytes(fit["rows"]).items()},
+            "collectives": len(fit["rows"]), "chunks": len(fit["chunks"]),
+            "missing_ranks": len(missing),
+            "overlap": gang_runs.overlapped(fit["rows"], fit["compute"]),
+            "launches": launches, "pids": [r[0]["pid"] for r in recs],
+            "devices": [r[0]["device_name"] for r in recs],
+            "reduced_type": recs[0][0]["reduced_type"],
+            "fit_wall_s": fit["wall_s"]}
+        f = fields[name]
+        if not (all(math.isfinite(x) for x in losses) and gap <= limit):
+            problems.append(f"{name}: losses {losses} vs phase 8's "
+                            f"{bf16_losses[:steps]} (limit {limit})")
+        if not fit["rows"] or not fit["chunks"] or missing:
+            problems.append(f"{name}: {len(fit['rows'])} train_dp rows, "
+                            f"{len(fit['chunks'])} chunk records, missing "
+                            f"ranks at seqs {missing[:5]}")
+        if not f["overlap"]:
+            problems.append(f"{name}: no collective overlaps its rank's "
+                            "compute phase")
+        want = dict.fromkeys(KERNELS, n_layer * steps)
+        if any(x != want for x in launches):
+            problems.append(f"{name}: launches {launches}, want {want} in "
+                            "each worker")
+        if len(set(f["pids"])) != GANG["ranks"] or os.getpid() in f["pids"]:
+            problems.append(f"{name}: worker pids {f['pids']}")
+        if any(d != card for d in f["devices"]):
+            problems.append(f"{name}: worker devices {f['devices']}, not "
+                            f"{card!r}")
+        if f["reduced_type"] != "ndarray":
+            problems.append(f"{name}: the store path returned "
+                            f"{f['reduced_type']}")
+    if not fields["int8"]["wire_bytes"] < fields["int8"]["logical_bytes"]:
+        problems.append(f"int8 wire {fields['int8']['wire_bytes']} is not "
+                        f"below its logical {fields['int8']['logical_bytes']}")
+    fields["int8_vs_f32_step1"] = bound[0]
+    return fields, problems
+
+
+def _nccl_problems(ops):
+    """Phase 36 (c): the "nccl" backend's four ops of phase 20's quantized
+    fit (``_nccl_collective_ops``)."""
+    problems = []
+    for op, r in ops.items():
+        if not (r["on_card"] and r["equal_store"]):
+            problems.append(f"nccl {op}: {r}")
+        if op in ("allreduce", "broadcast") and not r["in_place"]:
+            problems.append(f"nccl {op} did not reduce in place: {r}")
+    if sorted(ops) != ["allgather", "allreduce", "broadcast",
+                       "reducescatter"]:
+        problems.append(f"nccl ops run: {sorted(ops)}")
+    return problems
+
+
+def phase_gang_data_plane(smi, bf16_losses, nccl_ops):
+    """Phase 36: the object plane, GradSync's chunked allreduce over the
+    store with two ranks sharing the card, and the "nccl" backend's ops
+    (run inside phase 20's quantized fit, ``nccl_ops``). Returns each
+    worker's launches, for the ``kernels`` line."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.util import state
+
+    if __name__ != "__main__":
+        # imported by a short script: send the actors by value all the same
+        import cloudpickle
+
+        cloudpickle.register_pickle_by_value(sys.modules[__name__])
+    card = smi.split(",")[0].strip()
+    root = tempfile.mkdtemp(prefix="gang_")
+    seconds, t0 = {}, time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    session_dir = global_worker.node.session_dir
+    try:
+        seconds["init"], t0 = time.perf_counter() - t0, time.perf_counter()
+        objects, problems = gang_objects()
+        seconds["objects"], t0 = time.perf_counter() - t0, time.perf_counter()
+        fits, bound, gaps = gang_gradsync(root)
+        seconds["gradsync"], t0 = time.perf_counter() - t0, time.perf_counter()
+        gang, more = _gang_problems(fits, bound, gaps, GANG["grad_limit"],
+                                    bf16_losses, GPT2_124M["n_layer"], card)
+        problems += more
+        trace = state.train_timeline(os.path.join(root, "timeline.json"))
+        with open(os.path.join(root, "timeline.json")) as f:
+            written = json.load(f)
+        seconds["timeline"], t0 = time.perf_counter() - t0, time.perf_counter()
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    left = _wait_for_no_processes(session_dir)
+    seconds["shutdown"] = time.perf_counter() - t0
+    ranks = {e["args"]["name"] for e in trace if e["ph"] == "M"}
+    problems += _nccl_problems(nccl_ops)
+    if written != trace or not {"rank 0", "rank 1"} <= ranks:
+        problems.append(f"train_timeline: process rows {sorted(ranks)}")
+    if left:
+        problems.append(f"session processes left after shutdown: {left}")
+    steps = GANG["steps"]
+    emit("gang_data_plane", objects=objects, gradsync=gang,
+         nccl_ops=nccl_ops, seconds=seconds, timeline_events=len(trace),
+         timeline_ranks=sorted(ranks), processes_left=left,
+         config="gpt2_124m attention=flash loss_chunks=8 bf16/f32-params "
+                f"AdamW lr 3e-4, {GANG['ranks']} ranks at GPU "
+                f"{GANG['gpu']} on one card, {GANG['rows']} x 1024 rows "
+                f"each, {steps['f32']} steps (int8: {steps['int8']}), "
+                "TorchConfig(backend='gloo'), "
+                "overlap_grads=True, GradSync mean over the store "
+                "collective's train_dp group (collective_chunk_bytes "
+                "default), then collective_quant='int8'",
+         note="step_ms on each worker's host clock; allreduce_s from the "
+              "first gradient's submit to the reduced gradients, "
+              "exposed_allreduce_s from the end of the backward (synced) "
+              "to them; wire/logical bytes summed over the ranks' "
+              "collective records; GB/s over the parameters' f32 bytes")
+    if problems:
+        raise AssertionError("gang_data_plane: " + "; ".join(problems))
+    return {name: [r[-1]["launches"] for r in fit["records"]]
+            for name, fit in fits.items()}
+
+
 def _bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the peak of their type (bf16 on the tensor cores unless
@@ -4854,6 +5366,8 @@ def phase_kernels(serve_launches, train_launches, step_ms, llama_serve,
             (dict.fromkeys(KERNELS), None, "pp_train",
              train_runs.BATCH // PARALLEL["microbatches"], 12,
              train_runs.SEQ, 64, 12 * PARALLEL["microbatches"], 11, True),
+            (dict.fromkeys(KERNELS), None, "gang_train", GANG["rows"], 12,
+             train_runs.SEQ, 64, None, 14, True),
             (ring["diag"], None, "ring_diag_block", RING["b"],
              RING["h"], RING["s"] // RING["n"], RING["d"], None, 12, True),
             (ring["full"], None, "ring_full_block", RING["b"],
@@ -4879,6 +5393,20 @@ def phase_kernels(serve_launches, train_launches, step_ms, llama_serve,
         if share["step_ms"] is not None:
             emit("attention_share", **share)
     return entries, [share for share in shares if share["step_ms"] is None]
+
+
+def _gang_rows(entries, gang_launches):
+    """Phase 36's launches into the gang's rows (B*H 96: a rank's 8 rows x
+    12 heads), summed over both fits' workers, each worker's beside."""
+    for entry in entries:
+        if entry["path"] == "gang_train":
+            per_worker = {fit: [w[entry["name"]] for w in workers]
+                          for fit, workers in gang_launches.items()}
+            entry["launches"] = sum(sum(v) for v in per_worker.values())
+            entry["launches_per_worker"] = per_worker
+            entry["note"] = ("phase 36's workers, 2 ranks sharing the card, "
+                             "f32 and int8 fits; times are phase 15's at "
+                             "this shape")
 
 
 def _parallel_rows(entries, pending, parallel):
@@ -4972,7 +5500,7 @@ def main() -> int:
     timed("llama_trace", phase_llama_trace, llama_serve)
     timed("moe_trace", phase_moe_trace, moe_train[1])
     timed("serve_run", phase_serve_run, smi, bf16_streams)
-    timed("train_fit", phase_train_fit, smi, bf16_losses, step_ms)
+    nccl_ops = timed("train_fit", phase_train_fit, smi, bf16_losses, step_ms)
     tune_launches = timed("tune_asha_vit", phase_tune_asha, smi, vit_train[2],
                           vit_train[1])
     timed("data_resnet_fit", phase_data_resnet_fit, smi, *resnet_train)
@@ -4984,11 +5512,14 @@ def main() -> int:
                              bf16_streams)
     workflow_launches = timed("workflow_queue", phase_workflow_queue, smi,
                               bf16_losses, bf16_streams)
+    gang_launches = timed("gang_data_plane", phase_gang_data_plane, smi,
+                          bf16_losses, nccl_ops)
     # phase 27 forms and destroys an NCCL group in this process: after
     # every phase that times or traces a kernel
     parallel = timed("parallel_train", phase_parallel_train, bf16_losses,
                      step_ms, moe_train, llama_serve["tokens"])
     kernels += _parallel_rows(kernels, pending, parallel)
+    _gang_rows(kernels, gang_launches)
     vit_entries = [e for e in kernels if e["path"] == "vit_train"]
     kernels += _tune_entries(vit_entries, tune_launches)
     kernels += _predict_entries(vit_entries, predict_launches)

@@ -2,19 +2,37 @@
 
 Analog of the reference's SerializationContext
 (ray: python/ray/_private/serialization.py:108): cloudpickle for closures +
-pickle protocol 5 out-of-band buffers so numpy / jax host arrays round-trip
-through the shm store without copies on the read side. A serialized value is
+pickle protocol 5 out-of-band buffers so numpy arrays round-trip through the
+shm store without copies on the read side. A serialized value is
 
   metadata: pickled {"fmt": ..., "buf_lens": [...], "nested_refs": [...]}
   data:     [8B pickle_len][pickle bytes][buffer 0][buffer 1]...
 
 Errors are serialized with fmt="error" so ``get`` re-raises on the caller
 (ray: python/ray/exceptions.py RayTaskError semantics).
+
+Torch tensors. A CPU tensor pickles as torch pickles it (in-band, through
+its storage's ``torch.save`` blob), as the reference's ``jax.Array`` does.
+A CUDA tensor travels as its host bytes (one out-of-band buffer) plus its
+dtype, shape and a device tag, and ``_rebuild_cuda_tensor`` puts it back on
+the reader's current card where the reader sees one, else on the CPU, as
+the reference rebuilds an array on the reader's default device. Torch's own
+pickle of a CUDA tensor is rebuilt on ``cuda:<index>`` by ``torch.load`` and
+raises in a process that hides the card itself (every RLlib env runner, an
+actor whose ``runtime_env`` sets ``CUDA_VISIBLE_DEVICES=""``). No lease
+narrows ``CUDA_VISIBLE_DEVICES`` (``raylet.py``), so an actor at
+``num_gpus=0`` on a card's node sees the card, and a CUDA tensor it reads is
+rebuilt there on its current card: a CUDA context and card memory outside
+any lease. Only plain ``torch.Tensor`` objects take this path: a
+``Parameter`` reduces to its ``.data``, which then does; other subclasses
+pickle as torch pickles them.
 """
 
 from __future__ import annotations
 
+import io
 import pickle
+import sys
 from typing import Any, List, Tuple
 
 import cloudpickle
@@ -106,6 +124,55 @@ class SerializedValue:
         return BufferList(self.buffers)
 
 
+def _rebuild_cuda_tensor(host, dtype, shape, device_tag, requires_grad):
+    """A CUDA tensor's host bytes ``host`` (uint8 numpy, read-only when it
+    is a view of the store) back as a tensor of ``dtype`` and ``shape``: on
+    the reader's current card where one is visible, else a CPU copy (the
+    copy never aliases the store). ``device_tag`` ("cuda:0") names the
+    writer's card; the reader's card is its own current one."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():  # read-only source: copied just below
+        warnings.simplefilter("ignore", UserWarning)
+        flat = torch.from_numpy(host)
+    if torch.cuda.is_available():
+        out = flat.to(torch.device("cuda", torch.cuda.current_device()))
+    else:
+        out = flat.clone()
+    out = out.view(dtype).reshape(shape)
+    if requires_grad:
+        out.requires_grad_(True)
+    return out
+
+
+def _reduce_cuda_tensor(t):
+    import torch
+
+    host = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+    return (_rebuild_cuda_tensor,
+            (host, t.dtype, tuple(t.shape), str(t.device),
+             bool(t.requires_grad and t.is_leaf)))
+
+
+class _Pickler(cloudpickle.Pickler):
+    """cloudpickle's pickler, with plain CUDA tensors reduced to host bytes
+    plus a device tag (module docstring)."""
+
+    def reducer_override(self, obj):
+        torch = sys.modules.get("torch")  # a tensor implies torch is loaded
+        if torch is not None and type(obj) is torch.Tensor and obj.is_cuda:
+            return _reduce_cuda_tensor(obj)
+        return super().reducer_override(obj)
+
+
+def _dumps(value, buffer_callback) -> bytes:
+    with io.BytesIO() as f:
+        _Pickler(f, protocol=5, buffer_callback=buffer_callback).dump(value)
+        return f.getvalue()
+
+
 def _pack(fmt: bytes, pickled: bytes, oob: List, nested_refs) -> SerializedValue:
     buf_lens = [len(b) for b in oob]
     meta = pickle.dumps(
@@ -133,7 +200,7 @@ def serialize(value: Any) -> SerializedValue:
 
     _object_ref.start_ref_capture()
     try:
-        pickled = cloudpickle.dumps(value, protocol=5, buffer_callback=buffer_callback)
+        pickled = _dumps(value, buffer_callback)
         nested = [(r.binary(), r.owner) for r in _object_ref.captured_refs()]
     finally:
         _object_ref.stop_ref_capture()

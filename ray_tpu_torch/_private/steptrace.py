@@ -323,11 +323,14 @@ class phase:
 # ---------------------------------------------------------------------------
 
 def trace_jit(fn, name: Optional[str] = None):
-    """Wrap a jitted callable so cache growth during a call is recorded
-    as a compile event (first call vs recompile): jax compiles lazily at
-    call time, so a call that grows ``fn._cache_size()`` spent its wall
-    time tracing+compiling. Works on any object exposing ``_cache_size``
-    (jax.jit since 0.4); silently degrades to a passthrough otherwise."""
+    """Wrap a callable that compiles lazily and exposes ``_cache_size()``
+    (its count of compiled entries) so cache growth during a call is
+    recorded as a compile event (first call vs recompile): a call that
+    grows ``fn._cache_size()`` spent its wall time compiling. That is the
+    contract of the reference's jitted functions; nothing in the port has
+    one, so on a torch function or module this is a pass-through. The
+    port's compile events are its kernels' nvcc builds
+    (``install_compile_listener`` + ``record_kernel_build``)."""
     import functools
 
     label = name or getattr(fn, "__name__", None) or "jit"

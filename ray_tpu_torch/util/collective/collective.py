@@ -545,6 +545,10 @@ def _to_numpy(tensor) -> np.ndarray:
         return tensor
     torch = sys.modules.get("torch")  # a torch tensor implies torch is loaded
     if torch is not None and isinstance(tensor, torch.Tensor):
+        # numpy has no bfloat16 (the reference's ml_dtypes one is a JAX
+        # dependency): a bf16 tensor travels, and comes back, as float32
+        if tensor.dtype == torch.bfloat16:
+            tensor = tensor.float()
         return tensor.detach().cpu().numpy()
     return np.asarray(tensor)
 

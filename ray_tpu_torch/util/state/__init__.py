@@ -390,7 +390,7 @@ def train_timeline(filename: Optional[str] = None) -> list:
     (Perfetto / chrome://tracing loadable): one process row per rank
     with step boundaries, ``step_phase`` intervals, per-collective
     slices annotated with (group, seq) arrival skew + the last-arriving
-    rank, and XLA compile events. The per-step complement of
+    rank, and compile events (kernel builds). The per-step complement of
     ``ray_tpu_torch.timeline()`` (which renders task scheduling): this one
     shows where each training step's time actually goes and which rank
     every collective waited on."""
