@@ -845,9 +845,14 @@ class GcsServer:
                 # token would replay the cached rejection forever. Lost-
                 # reply dedup lives in the raylet instead — rpc_create_actor
                 # re-answers for an actor_id it already runs.
+                # the raylet bounds each step of a creation itself (the
+                # worker's registration, then __init__ under
+                # gcs_rpc_timeout_s): a shorter wait here gave up on a slow
+                # but live creation once the search deadline had passed
                 reply = await self.node_conns[target].request(
                     "create_actor", {"spec": spec},
-                    timeout=cfg.gcs_rpc_timeout_s,
+                    timeout=cfg.worker_register_timeout_s
+                    + cfg.gcs_rpc_timeout_s,
                 )
             except Exception as e:
                 logger.warning("actor creation on %s failed: %s", target[:8], e)

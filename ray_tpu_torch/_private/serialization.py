@@ -20,10 +20,14 @@ the reference rebuilds an array on the reader's default device. Torch's own
 pickle of a CUDA tensor is rebuilt on ``cuda:<index>`` by ``torch.load`` and
 raises in a process that hides the card itself (every RLlib env runner, an
 actor whose ``runtime_env`` sets ``CUDA_VISIBLE_DEVICES=""``). No lease
-narrows ``CUDA_VISIBLE_DEVICES`` (``raylet.py``), so an actor at
-``num_gpus=0`` on a card's node sees the card, and a CUDA tensor it reads is
-rebuilt there on its current card: a CUDA context and card memory outside
-any lease. Only plain ``torch.Tensor`` objects take this path: a
+narrows ``CUDA_VISIBLE_DEVICES`` (``raylet.py``), as no lease narrows the
+chips a worker sees in the reference (one worker process owns all local
+chips there), so an actor at ``num_gpus=0`` on a card's node sees the card,
+and a CUDA tensor it reads is rebuilt there on its current card: a CUDA
+context and card memory outside any lease. That is a limit the port shares
+with the reference, which rebuilds an array on the reader's default device
+the same way, not a fault of the port. Only plain ``torch.Tensor`` objects
+take this path: a
 ``Parameter`` reduces to its ``.data``, which then does; other subclasses
 pickle as torch pickles them.
 """

@@ -194,24 +194,20 @@ def session_processes(session_dir: str) -> List[int]:
 
 def node_table(address: str, token: str,
                timeout_s: float = 10.0) -> List[dict]:
-    """The GCS's node table, over one connection made with ``token``."""
+    """The GCS's node table, over one connection made with ``token`` (this
+    process's own cluster token, if it has a cluster, is left as it is)."""
     from ray_tpu_torch._private.rpcio import EventLoopThread, connect
 
-    prev = os.environ.get(TOKEN_ENV)
-    os.environ[TOKEN_ENV] = token
     io = EventLoopThread("cluster-runs-io")
     try:
         host, port = address.rsplit(":", 1)
-        conn = io.run(connect(host, int(port)), timeout=timeout_s)
+        conn = io.run(connect(host, int(port), token=token),
+                      timeout=timeout_s)
         nodes = io.run(conn.request("get_nodes", {}), timeout=timeout_s)
         return nodes.get("nodes", nodes) if isinstance(nodes, dict) \
             else nodes
     finally:
         io.stop()
-        if prev is None:
-            os.environ.pop(TOKEN_ENV, None)
-        else:
-            os.environ[TOKEN_ENV] = prev
 
 
 def _launched(nodes: List[dict]) -> List[dict]:

@@ -15,7 +15,9 @@ CPU tests so that both drive one and the same path.
 2. A queue feeding the card: ``util.multiprocessing.Pool(2)`` builds the
    prompts from their seed on CPU workers, the driver puts them into a
    ``util.queue.Queue(maxsize=2)`` and a consumer actor that leases the GPU
-   answers each through ``GPT2LLM`` onto a second queue.
+   answers each through ``GPT2LLM`` onto a second queue. The consumer is
+   created before the workflow, so that its start runs under it: its lease
+   and a step's (``config["num_gpus"]`` each) share the cluster's GPUs.
 
 ``train_step`` trains GPT-2 from seed 0 (or from ``config["init"]``, a
 state dict) on one fixed batch from seed 1, saves the weights with
@@ -225,9 +227,10 @@ class Consumer:
     def __init__(self, config):
         self.config = config
         self.llm = load_llm(config)
+        self.ready_at = time.time()
 
     def ready(self) -> Dict[str, Any]:
-        return _where(self.config)
+        return dict(_where(self.config), ready_at=self.ready_at)
 
     def run(self, inbox, outbox, n: int) -> Dict[str, Any]:
         from ray_tpu_torch.ops import attention as attn
@@ -242,7 +245,18 @@ class Consumer:
                     forwards=self.llm.forwards)
 
 
-def _queue_run(config) -> Dict[str, Any]:
+def _start_consumer(config):
+    """The consumer actor and the time it was asked for."""
+    import ray_tpu_torch as rt
+
+    created_at = time.time()
+    return rt.remote(num_gpus=config["num_gpus"])(Consumer).remote(
+        config), created_at
+
+
+def _queue_run(config, started) -> Dict[str, Any]:
+    """The queue run, on the consumer that ``_start_consumer`` made
+    (``started``)."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.util.multiprocessing import Pool
     from ray_tpu_torch.util.queue import Full, Queue
@@ -259,10 +273,10 @@ def _queue_run(config) -> Dict[str, Any]:
     out["prompts"] = prompts
     inbox, outbox = Queue(maxsize=2), Queue()
     t0 = time.perf_counter()
-    consumer = rt.remote(num_gpus=config["num_gpus"])(Consumer).remote(
-        config)
+    consumer, created_at = started
     out["consumer"] = rt.get(consumer.ready.remote(), timeout=300)
-    out["consumer_start_s"] = time.perf_counter() - t0
+    out["consumer_wait_s"] = time.perf_counter() - t0
+    out["consumer_start_s"] = out["consumer"].pop("ready_at") - created_at
     put_at = {}
     for i in (0, 1):
         put_at[i] = time.time()
@@ -324,6 +338,7 @@ def drive(workdir: str, config: Dict[str, Any],
     out: Dict[str, Any] = {"storage": storage}
     proc = None
     try:
+        started = _start_consumer(config)
         run = workflow._WorkflowRun(WORKFLOW_ID, storage)
         train_id = _train_step_id(config)
         checkpoint = run.step_path(train_id)
@@ -358,7 +373,7 @@ def drive(workdir: str, config: Dict[str, Any],
         out["listed"] = workflow.list_all(storage=storage)
         with open(os.path.join(storage, CALLS)) as f:
             out["calls"] = [line.split()[0] for line in f]
-        out["queue"] = _queue_run(config)
+        out["queue"] = _queue_run(config, started)
     finally:
         if proc is not None and proc.poll() is None:
             proc.kill()
@@ -369,6 +384,15 @@ def drive(workdir: str, config: Dict[str, Any],
         time.sleep(0.5)
     out["processes_left"] = session_processes(session_dir)
     return out
+
+
+def drive_checked(workdir: str, config: Dict[str, Any],
+                  init_kwargs: Dict[str, Any], n_layer: int):
+    """``drive`` and then ``problems`` in the same process (which the
+    checks take as the driver's): (out, problems). For a caller that runs
+    the drive in a process of its own."""
+    out = drive(workdir, config, init_kwargs)
+    return out, problems(out, config, n_layer)
 
 
 def problems(out: Dict[str, Any], config: Dict[str, Any],

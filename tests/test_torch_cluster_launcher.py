@@ -161,3 +161,44 @@ def test_submitted_job_trains_on_the_node_the_autoscaler_launches(tmp_path):
     assert "put gigabytes" in out["microbenchmark"]
     assert out["submit_to_node_s"] is not None
     assert out["teardown_s"] is not None
+
+
+def test_node_table_leaves_this_process_token_alone(monkeypatch):
+    """``cluster_runs.node_table`` dials another cluster with that
+    cluster's token and never writes it into this process's environment:
+    phase 33's run polls it from a thread while this process runs clusters
+    of its own, whose new connections read the environment's token."""
+    import os
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.tools import cluster_runs
+
+    env = cluster_runs.TOKEN_ENV
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=1)
+    token = os.environ[env]
+    try:
+        monkeypatch.setenv(env, "another-cluster")
+        seen, stop = set(), threading.Event()
+
+        def watch():
+            while not stop.is_set():
+                seen.add(os.environ.get(env))
+
+        watcher = threading.Thread(target=watch)
+        watcher.start()
+        try:
+            for _ in range(20):
+                assert cluster_runs.node_table(global_worker.node.address,
+                                               token)
+        finally:
+            stop.set()
+            watcher.join(10)
+        assert not watcher.is_alive()
+        assert seen == {"another-cluster"}
+    finally:
+        monkeypatch.setenv(env, token)
+        ray_tpu_torch.shutdown()

@@ -29,7 +29,7 @@ from ray_tpu_torch.tools import workflow_runs
 SMALL = dict(vocab_size=512, n_positions=128, n_embd=64, n_layer=2,
              n_head=4)
 CONFIG = {
-    "device": "cpu", "num_gpus": 1, "steps": 4, "batch": 2, "seq": 64,
+    "device": "cpu", "num_gpus": 0.5, "steps": 4, "batch": 2, "seq": 64,
     "train_model": {"preset": "small_test", "attention": "flash",
                     "loss_chunks": 4, "dtype": "float32"},
     "serve_model": dict(SMALL, attention="flash", dtype="float32"),
