@@ -561,6 +561,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    and GB/s of each form per reader, step ms, allreduce and exposed
    seconds per step, wire and logical bytes of each fit, and the int8
    check's worst error over its bound and the gradient gaps' worst.
+37. serve_multiplex_redeploy (in phase 19's cluster, after its (a) and
+   (b); phase 19's app is deleted first, freeing the card's lease;
+   ``tools/multiplex_runs.py``, which ``tests/test_torch_serve_multiplex.py``
+   runs at small size on the CPU): a deployment's class lives in a module
+   written to a temporary directory and reaches its replica only through
+   ``ray_actor_options={"num_gpus": 0.5, "runtime_env": {"working_dir":
+   d}}`` (this process never imports it; the deployment names the class).
+   The class loads GPT-2-124M (phase 6's bf16 flash configuration) with
+   ``@serve.multiplexed(max_num_models_per_replica=2)``, the model id as
+   its weights' seed. Phase 6's five requests go over HTTP, one after
+   another, to model ids 0, 1, 0, 2, 1, 16 tokens each. Checks: each
+   answer equal to the bit to the tokens of a ``GPT2LLM`` of that seed run
+   in this process on the card (for id 0, phase 6's in-process server's,
+   whose model is seed 0; ids 1 and 2 decode on a thread while the
+   replica starts);
+   the replica loaded 0, 1, 2, 1 (4 loads, the last a reload of 1) and
+   holds 1 and 2 after (2 evictions: 2 evicted 1, the reload of 1 evicted
+   0); flash_fwd launches = 12 x the forwards it reports (80), no backward
+   launch. Then ``serve.run`` of a second directory, whose module tags
+   each answer ``v2``, under the same app name and route, while a client
+   thread sends requests (phase 6's 32-token prompt to model 1, one token)
+   over HTTP without pause, until the ``v1`` replica's process is gone and
+   10 more answers came: every answer 200 with the in-process model's
+   token, the tags switching from ``v1`` to ``v2`` once and never back.
+   The two versions lease half the card each: a rolling update keeps the
+   old replica serving until the new one is up, so both must fit on the
+   one card at once. Prints the requests sent during the rollout and the
+   seconds from ``serve.run`` to the first ``v2`` answer.
 
 Every phase raises on a failed check; no failure is caught.
 
@@ -572,6 +600,9 @@ uninterrupted fit, whose losses generation 0 of the recovered run now
 gives; phase 36's f32 fit from 3 steps to 2; one profiled update of each
 learner instead of three; phase 35's leases to half a card, so that its
 consumer starts under the workflow. Phase 19 lost nothing and gained (b).
+Phase 37 runs in phase 19's cluster, so it pays no cluster start of its
+own, and decodes its reference tokens on a thread while its replica
+starts; the ``seconds`` line counts it apart from phase 19.
 
 The ``kernels`` line comes after phase 27: phase 15's entries (with the
 ring's diagonal and whole blocks at B*H 192, S 256 with phase 26's
@@ -588,7 +619,9 @@ autoscaled replicas' (``serve_autoscaled_replicas``), and phase 35's: the
 training shape's with the workflow's train step's launches
 (``workflow_train_step``) and the serving shape's ``flash_fwd`` with the
 serve step's (``workflow_serve_step``) and the queue consumer's
-(``queue_consumer``); phase 15 also times the three kernels at the gang's
+(``queue_consumer``), and phase 37's serving-shape ``flash_fwd`` with the
+multiplexed replica's (``serve_multiplex_replica``); phase 15 also times
+the three kernels at the gang's
 shape (B*H 96: 8 rows x 12 heads, S 1024, D 64, causal), whose row
 (``gang_train``) takes the launches phase 36's workers counted. Then one
 line with
@@ -1893,10 +1926,12 @@ def _card_used_mib():
                      "--format=csv,noheader,nounits"]).splitlines()[0])
 
 
-def phase_serve_run(smi, bf16_streams):
+def phase_serve_run(smi, bf16_streams, after=None):
     """GPT-2-124M served by ``serve.run`` from a replica actor on the card,
     requests over HTTP through the port's proxy: phase 6's prompts and
-    weights, so its streams (``bf16_streams``) are the expected tokens."""
+    weights, so its streams (``bf16_streams``) are the expected tokens.
+    ``after(port)`` runs in the same cluster once (a) and (b) are done;
+    what it returns is returned."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1953,6 +1988,7 @@ def phase_serve_run(smi, bf16_streams):
         info = handle.options(method_name="debug_info").remote().result(
             timeout_s=60)
         failover = _gcs_failover(port, prompts, probe)
+        after_out = after(port) if after else None
     finally:
         serve.shutdown()
         rt.shutdown()
@@ -2025,6 +2061,82 @@ def phase_serve_run(smi, bf16_streams):
     problems += _gcs_failover_problems(failover, replica, bf16_streams, smi)
     if problems:
         raise AssertionError("serve_run: " + "; ".join(problems))
+    return after_out
+
+
+def phase_serve_multiplex_redeploy(smi, port, bf16_streams):
+    """Phase 37 in phase 19's cluster (``port`` its proxy's): the
+    multiplexed GPT-2 deployment shipped by ``runtime_env`` and its
+    redeploy under load (``tools/multiplex_runs.drive``). Returns the
+    multiplexed replica's launch counts."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.tools import multiplex_runs as mx
+
+    # phase 19's replica holds the card's whole lease
+    serve.delete("default")
+    model_kwargs = dict(attention="flash", dtype=torch.bfloat16, **GPT2_124M)
+    rng = np.random.default_rng(2)  # phase 6's prompts
+    prompts = [rng.integers(0, 50257, size=n).tolist()
+               for n in (32, 129, 300, 512)]
+    prompts.append(prompts[0])
+    # the seed-0 model's tokens are phase 6's streams (its in-process
+    # server's GPT2LLM is seed 0); models 1 and 2 decode here, on a thread
+    # while the replica starts
+    others = [i for i, model_id in enumerate(mx.IDS) if model_id != "0"]
+    root = tempfile.mkdtemp(prefix="serve_multiplex_")
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            decoded = pool.submit(
+                mx.reference_tokens, model_kwargs, "cuda",
+                [prompts[i] for i in others], [mx.IDS[i] for i in others],
+                16)
+            out = mx.drive(root, port, prompts, model_kwargs)
+            decoded = dict(zip(others, decoded.result()))
+        serve.delete(mx.APP)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    expected = [decoded[i] if i in decoded else list(bf16_streams[i])
+                for i in range(len(prompts))]
+    # the rollout's request is the last prompt's (phase 6's 32-token one,
+    # model 1) with one token
+    assert prompts[-1] == prompts[0] and mx.IDS[-1] == mx.ROLLOUT_ID
+    rollout_expected = expected[-1][:mx.ROLLOUT_TOKENS]
+    v1 = out["v1"]
+    rollout = out["rollout"]
+    emit("serve_multiplex_redeploy", ids=list(mx.IDS),
+         prompt_lens=[len(p) for p in prompts],
+         tokens=[a["body"].get("tokens") if isinstance(a["body"], dict)
+                 else a["body"] for a in out["answers"]],
+         loads=v1["loads"], resident=v1["resident"],
+         forwards=v1["forwards"], launches=v1["launches"],
+         launches_per_forward=v1["launches"]["flash_fwd"] / v1["forwards"]
+         if v1["forwards"] else None,
+         replica_pid={"v1": v1["pid"], "v2": out["v2"]["pid"]},
+         replica_device=v1["device"], replica_device_name=v1["device_name"],
+         v1_start_s=out["v1_start_s"], answers_s=out["answers_s"],
+         serve_run_s=out["serve_run_s"], v1_gone_s=out["v1_gone_s"],
+         rollout_requests=out["rollout_requests"],
+         serve_run_to_first_v2_s=out["serve_run_to_first_v2_s"],
+         client_answers=len(rollout),
+         statuses=sorted({r["status"] for r in rollout}),
+         tags=mx.tag_runs([r["tag"] for r in rollout]),
+         nvidia_smi=smi,
+         note="launches and forwards are the multiplexed replica's, zeroed "
+              "before its 5 answers and read after; rollout_requests are "
+              "the client's requests sent from serve.run of v2 on, tags "
+              "the runs of every client answer's version in order; "
+              "seconds on the host clock from serve.run's call")
+    problems = mx.problems(out, expected, rollout_expected,
+                           GPT2_124M["n_layer"], on_card=True)
+    if v1["device_name"] != torch.cuda.get_device_name(0):
+        problems.append(f"the replica's models are on {v1['device_name']}")
+    if problems:
+        raise AssertionError("serve_multiplex_redeploy: "
+                             + "; ".join(problems))
+    return v1["launches"]
 
 
 # phase 19 (b): the card's memory may grow by less than half of GPT-2-124M's
@@ -5749,7 +5861,12 @@ def main() -> int:
                              llama_train, vit_train, moe_train, ring)
     timed("llama_trace", phase_llama_trace, llama_serve)
     timed("moe_trace", phase_moe_trace, moe_train[1])
-    timed("serve_run", phase_serve_run, smi, bf16_streams)
+    multiplex_launches = timed(
+        "serve_run", phase_serve_run, smi, bf16_streams,
+        lambda port: timed("serve_multiplex_redeploy",
+                           phase_serve_multiplex_redeploy, smi, port,
+                           bf16_streams))
+    seconds["serve_run"] -= seconds["serve_multiplex_redeploy"]
     nccl_ops = timed("train_fit", phase_train_fit, smi, bf16_losses, step_ms)
     tune_launches = timed("tune_asha_vit", phase_tune_asha, smi, vit_train[2],
                           vit_train[1])
@@ -5785,7 +5902,9 @@ def main() -> int:
         ("workflow_serve_step", serve_step,
          "the workflow's serve step counted in its worker"),
         ("queue_consumer", consumer,
-         "the queue's consumer actor counted")])
+         "the queue's consumer actor counted"),
+        ("serve_multiplex_replica", multiplex_launches,
+         "the multiplexed replica's over its 5 answers, counted in it")])
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("seconds", **seconds, main_s=time.perf_counter() - t_main)
     print(smi, flush=True)

@@ -555,6 +555,12 @@ class _ContainerPlugin(RuntimeEnvPlugin):
     # worker runs, it IS in the container (the raylet did the wrapping)
 
 
+# The variables that choose the worker's device, forwarded into a container
+# as the cluster's own are: which cards CUDA shows the process, and in what
+# order it numbers them.
+DEVICE_ENV_KEYS = ("CUDA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER")
+
+
 def build_container_command(container: dict, env: Dict[str, str],
                             inner_argv: List[str],
                             extra_env_keys: tuple = (),
@@ -569,10 +575,11 @@ def build_container_command(container: dict, env: Dict[str, str],
     baked in still work for same-version clusters.
 
     ``extra_env_keys``: additional env names to forward (the caller's
-    runtime_env env_vars + accelerator triggers — the prefix filter
-    below only covers cluster plumbing). ``cidfile``: engine writes the
-    container id there so the raylet can force-remove a container whose
-    client process it had to kill (SIGKILL never proxies).
+    runtime_env env_vars — the prefix filter below only covers cluster
+    plumbing, and ``DEVICE_ENV_KEYS`` the device's selection).
+    ``cidfile``: engine writes the container id there so the raylet can
+    force-remove a container whose client process it had to kill
+    (SIGKILL never proxies).
     """
     from ray_tpu_torch._private.config import GLOBAL_CONFIG as cfg
 
@@ -590,7 +597,7 @@ def build_container_command(container: dict, env: Dict[str, str],
     cmd += ["-v", f"{repo_root}:{repo_root}:ro",
             "-e", f"PYTHONPATH={repo_root}"]
     for k, v in env.items():
-        if k.startswith(("RAY_TPU_TORCH_", "JAX_", "XLA_")) \
+        if k.startswith("RAY_TPU_TORCH_") or k in DEVICE_ENV_KEYS \
                 or k in extra_env_keys:
             cmd += ["-e", f"{k}={v}"]
     cmd += list(container.get("run_options", []))

@@ -30,6 +30,10 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # one batch of 64 images from numpy seed 40
 LOOP = {"model": "vit_b16", "dtype": "bfloat16", "weight_seed": 0,
         "batch_seed": 40, "batch": 64, "device": "cuda"}
+# intra-op threads of a trial on the CPU: the CPU's sums split by thread
+# count, so a loss's last bit moves with the count a worker starts with,
+# and ASHA's first rung compares first losses that every trial shares
+CPU_THREADS = 1
 
 
 def vit_trial_loop(config: Dict) -> None:
@@ -43,13 +47,16 @@ def vit_trial_loop(config: Dict) -> None:
     card memory and wall-clock marks (the worker process's start, the
     loop's start, its CUDA context ready, the model and optimizer built,
     the batch ready, each report). The trial's scheduler may stop it after
-    any report."""
+    any report. On the CPU it computes with ``CPU_THREADS`` intra-op
+    threads, whatever its process started with."""
     from ray_tpu_torch import train
     from ray_tpu_torch._private import steptrace
     from ray_tpu_torch.ops import attention as attn
 
     t_loop = time.time()
     device = torch.device(config["device"])
+    if device.type == "cpu":
+        torch.set_num_threads(CPU_THREADS)
     if device.type == "cuda":
         device = torch.device("cuda", train.get_context().get_local_rank())
         torch.cuda.reset_peak_memory_stats(device)

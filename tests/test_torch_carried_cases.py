@@ -1,10 +1,13 @@
-"""Every reference case of the control plane and fault tolerance has its
-counterpart in the port, under its own name.
+"""Every reference case that a slice carried has its counterpart in the
+port, under its own name.
 
-For each of the 13 reference files below (read, never changed), every
-``def test_`` name must appear as a ``def`` of the same name in
+For each reference file below (read, never changed), every ``def test_``
+name must appear as a ``def`` of the same name in
 ``tests/test_torch_<name>.py``, and a case the reference marks slow must be
-marked slow there too. One parametrised case per file.
+marked slow there too. One parametrised case per file: ``CARRIED`` holds
+the control plane and fault tolerance (13 files), ``CARRIED_SLICE_19`` the
+runtime environments, Serve and the learner group (8 files), beside which
+two cases of ``tests/test_serve.py`` live in ``tests/test_torch_serve.py``.
 """
 
 import ast
@@ -21,6 +24,17 @@ CARRIED = {
     "chaos": 2, "node_agent": 1,
 }
 
+CARRIED_SLICE_19 = {
+    "runtime_env": 5, "runtime_env_container": 4, "runtime_env_plugins": 9,
+    "serve_asgi": 4, "serve_schema": 3, "serve_grpc_typed": 3,
+    "serve_proxy_fleet": 2, "learner_group": 4,
+}
+
+SERVE_CASES = ("test_multiplexed_models", "test_redeploy_updates_code")
+
+# the port's copies of the reference's test helpers that slice 19 needed
+HELPERS = ("torch_runtime_env_plugin_mod.py", "torch_serve_test_app.py")
+
 
 def _cases(path):
     """{name: marked slow} of the module's top-level test functions."""
@@ -33,10 +47,9 @@ def _cases(path):
             and node.name.startswith("test_")}
 
 
-@pytest.mark.parametrize("name", sorted(CARRIED))
-def test_reference_cases_are_carried(name):
+def _check_carried(name, count):
     ref = _cases(os.path.join(TESTS, f"test_{name}.py"))
-    assert len(ref) == CARRIED[name]
+    assert len(ref) == count
     port = _cases(os.path.join(TESTS, f"test_torch_{name}.py"))
     missing = sorted(set(ref) - set(port))
     assert not missing, f"test_torch_{name}.py lacks {missing}"
@@ -44,5 +57,44 @@ def test_reference_cases_are_carried(name):
     assert not slow, f"slow marks differ from the reference's: {slow}"
 
 
+@pytest.mark.parametrize("name", sorted(CARRIED))
+def test_reference_cases_are_carried(name):
+    _check_carried(name, CARRIED[name])
+
+
+@pytest.mark.parametrize("name", sorted(CARRIED_SLICE_19))
+def test_slice_19_reference_cases_are_carried(name):
+    _check_carried(name, CARRIED_SLICE_19[name])
+
+
+def test_slice_19_serve_cases_are_carried():
+    ref = _cases(os.path.join(TESTS, "test_serve.py"))
+    port = _cases(os.path.join(TESTS, "test_torch_serve.py"))
+    for case in SERVE_CASES:
+        assert case in ref
+        assert case in port, f"test_torch_serve.py lacks {case}"
+        assert port[case] == ref[case]
+
+
+@pytest.mark.parametrize("helper", HELPERS)
+def test_slice_19_helpers_import_nothing_of_the_reference(helper):
+    """A replica or worker imports these by name, so they stand on the
+    port alone."""
+    with open(os.path.join(TESTS, helper), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert "ray_tpu_torch" in roots
+    assert not roots & {"ray_tpu", "jax", "flax"}, roots
+
+
 def test_the_slice_counts_102_cases():
     assert sum(CARRIED.values()) == 102
+
+
+def test_slice_19_counts_36_cases():
+    assert sum(CARRIED_SLICE_19.values()) + len(SERVE_CASES) == 36

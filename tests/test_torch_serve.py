@@ -1,7 +1,8 @@
 """The port's Serve control plane (``ray_tpu_torch.serve``) on the CPU:
 ``serve.run`` of plain deployments over HTTP through the port's proxy and
-through handles, streaming, and the typed load-shed (503 with
-``Retry-After``). Cases mirror ``tests/test_serve.py`` and
+through handles, streaming, multiplexed models, a redeploy under the same
+name, and the typed load-shed (503 with ``Retry-After``). Cases mirror
+``tests/test_serve.py`` and
 ``tests/test_serve_streaming.py`` with the reference's expected values.
 
 The client always asks ``serve.http_port()``: the proxy counts up from 8000
@@ -106,6 +107,24 @@ def test_batching(serve_cluster):
     assert sorted(o["v"] for o in outs) == [0, 1, 2, 3]
     assert any(o["batch"] > 1 for o in outs)
     serve.delete("batched")
+
+
+def test_multiplexed_models(serve_cluster):
+    @serve.deployment
+    class MultiModel:
+        @serve.multiplexed(max_num_models_per_replica=2)
+        async def load(self, model_id: str):
+            return {"id": model_id, "loaded_at": time.time()}
+
+        async def __call__(self, model_id: str):
+            m = await self.load(model_id)
+            return m["id"]
+
+    handle = serve.run(MultiModel.bind(), name="mm", route_prefix="/mm")
+    assert handle.remote("a").result(timeout_s=30) == "a"
+    assert handle.remote("b").result(timeout_s=30) == "b"
+    assert handle.remote("a").result(timeout_s=30) == "a"
+    serve.delete("mm")
 
 
 def test_http_streaming_incremental(serve_cluster):
@@ -268,6 +287,30 @@ def test_autoscaling_scales_up(serve_cluster):
     for f in futs:
         assert f.result(timeout_s=60) == "done"
     serve.delete("auto")
+
+
+def test_redeploy_updates_code(serve_cluster):
+    def make(version):
+        @serve.deployment(name="V")
+        class V:
+            def __call__(self, _request=None):
+                return version
+
+        return V
+
+    serve.run(make("v1").bind(), name="ver", route_prefix="/ver")
+    # str results render as plain text (dicts/lists as JSON)
+    assert requests.get(_url("/ver"), timeout=30).text == "v1"
+    serve.run(make("v2").bind(), name="ver", route_prefix="/ver")
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        r = requests.get(_url("/ver"), timeout=30)
+        assert r.status_code == 200, r.text  # rolling update: no downtime
+        if r.text == "v2":
+            break
+        time.sleep(0.2)
+    assert requests.get(_url("/ver"), timeout=30).text == "v2"
+    serve.delete("ver")
 
 
 def test_load_harness_smoke(serve_cluster):

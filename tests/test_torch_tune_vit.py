@@ -203,3 +203,86 @@ def test_quarter_card_trials_run_four_at_a_time(clusters, tmp_path):
     assert tune_runs.replay(asha.events, asha.trial_ids, metric="loss",
                             mode="min", **ASHA) == \
         [e[4] for e in asha.events if e[0] == "result"]
+
+
+# the first two losses a ``small_test`` trial reports at lr 1e-4, through
+# ``tune_runs.vit_trial_loop`` on the CPU from the reference's seed-0 weights
+_TRIAL_LOSSES = """
+import sys
+
+from ray_tpu_torch import train
+from ray_tpu_torch.tools import tune_runs
+
+seen = []
+train.report = lambda metrics, **kw: seen.append(metrics)
+tune_runs.vit_trial_loop(dict(tune_runs.LOOP, model="small_test",
+                              dtype="float32", weight_seed=0, batch_seed=1,
+                              batch=8, device="cpu", lr=1e-4, steps=2,
+                              init=sys.argv[1]))
+print(" ".join(m["loss"].hex() for m in seen))
+"""
+
+
+def test_trial_loop_losses_do_not_depend_on_the_cpu_thread_count(tmp_path):
+    """A trial's worker computes on the CPU with however many intra-op
+    threads its process starts with; at 7 the forward's sums split so that
+    the first loss ends one ulp lower than at 8 (and 1-6). ASHA's first rung
+    compares those first losses, which every trial shares, so the sweep
+    held to the reference's above would stop its 1e-4 trial at iteration 1
+    if one trial's worker started with another thread count. The loop
+    computes with a fixed count on the CPU: the same bits at 7 and 8."""
+    import subprocess
+    import sys
+
+    jcfg = jvision.ViTConfig.small_test(dtype=jnp.float32)
+    jparams, _, _ = jvision.make_train_state(
+        jvision.ViT(jcfg), jcfg, jax.random.PRNGKey(0), LRS[0])
+    init = str(tmp_path / "init.pt")
+    torch.save(vision_params_from_jax(jax.tree.map(np.asarray, jparams)),
+               init)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    losses = {}
+    for threads in ("7", "8"):
+        env = dict(os.environ, OMP_NUM_THREADS=threads,
+                   MKL_NUM_THREADS=threads, PYTHONPATH=repo)
+        out = subprocess.run([sys.executable, "-c", _TRIAL_LOSSES, init],
+                             env=env, cwd=repo, capture_output=True,
+                             text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        losses[threads] = out.stdout.split()
+    assert len(losses["8"]) == 2
+    assert losses["7"] == losses["8"], losses
+
+
+def test_a_one_ulp_lower_first_loss_stops_the_1e4_trial_at_iteration_1():
+    """The sweep above, replayed through a fresh ASHA from the first
+    losses its trials report (every trial starts from the same weights, so
+    at iteration 1 they tie): the 1e-4 trial continues past rung 1 and
+    stops at 2, as the reference's does; with trial 0's first loss one ulp
+    lower it stops at 1, the one iteration the port's sweep once
+    recorded."""
+    import math
+
+    first = float.fromhex("0x1.a912040000000p+1")
+    second = {"0": float.fromhex("0x1.7e72f60000000p+0"),
+              "1": float.fromhex("0x1.0629540000000p+0"),
+              "2": float.fromhex("0x1.89a6de0000000p+1")}
+
+    def decisions(first_of_trial_0):
+        events = []
+        for trial, t1 in (("0", first_of_trial_0), ("1", first),
+                          ("2", first)):
+            events += [("result", trial, 1, t1), ("result", trial, 2,
+                                                   second[trial])]
+            if trial != "2":
+                events += [("result", trial, 3, 0.5),
+                           ("result", trial, 4, 0.25),
+                           ("complete", trial, 4, 0.25)]
+        got = tune_runs.replay(events, ["0", "1", "2"], metric="loss",
+                               mode="min", **ASHA)
+        results = [e for e in events if e[0] == "result"]
+        return [(e[2], d) for e, d in zip(results, got) if e[1] == "2"]
+
+    assert decisions(first) == [(1, "CONTINUE"), (2, "STOP")]
+    assert decisions(math.nextafter(first, 0.0)) == [(1, "STOP"),
+                                                      (2, "STOP")]
