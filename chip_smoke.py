@@ -263,17 +263,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``tools/tune_runs.asha_tuner`` builds
    ``Tuner(TorchTrainer(tune_runs.vit_trial_loop, ScalingConfig(
    num_workers=1, resources_per_worker={"CPU": 1, "GPU": 0.25})))`` over a
-   grid of 4 learning rates with ASHA (``max_t`` 8, ``grace_period`` 2,
+   grid of 5 learning rates with ASHA (``max_t`` 8, ``grace_period`` 2,
    ``reduction_factor`` 2) and ``max_concurrent_trials=4``: each trial
    trains phase 13's model, weights and batch at its lr in a worker of its
-   own on the card (an NCCL group of one on ``cuda:0``), four at a time,
-   one report per step; each worker zeroes its launch counts before its
-   first step. Checks: 4 trials, no error; each trial's launches exactly 12
+   own on the card (an NCCL group of one on ``cuda:0``), four at a time
+   (the fifth, 1e-8, once one of the first four ends), one report per
+   step; each worker zeroes its launch counts before its first step.
+   Checks: 5 trials, no error; each trial's launches exactly 12
    x its iterations of each kernel, no plain-version call, no kernel build
    in the worker (phase 2 built them); finite losses; the lr 1e-4 trial's
    first 5 losses within 1e-2 of phase 13's (the line says whether they
    are equal to the bit); ASHA stops at least one trial before ``max_t``,
-   and a fresh ``ASHAScheduler`` replayed on the results in their order of
+   the fifth at ``grace_period`` among them, and a fresh ``ASHAScheduler`` replayed on the results in their order of
    arrival decides the same; ``get_best_result()`` names the trial with
    the lowest last loss; 4 trials ran at once (their loops' spans); no
    process of the session is left after shutdown. Prints the Tuner's wall
@@ -479,7 +480,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    2 and ``ray_actor_options={"num_gpus": 0.5}``, driven by
    ``serve.load_harness.run_load`` through the proxy: 8 connections, phase
    6's 4 prompts (32-512 tokens, 16 new each) in turn at 8 requests a
-   second for 15 s, then windows of 5 s until both replicas have served.
+   second for 10 s, then windows of 5 s until both replicas have served.
    Checks: ``running_replicas`` 1 before the load and 2 after; both
    replicas (separate processes on the card) launched ``flash_fwd``,
    exactly 12 per forward and no backward, read from each replica's actor;
@@ -589,6 +590,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    old replica serving until the new one is up, so both must fit on the
    one card at once. Prints the requests sent during the rollout and the
    seconds from ``serve.run`` to the first ``v2`` answer.
+38. observe_dag_actor (in phase 19's cluster, after phase 37;
+   ``tools/observe_runs.py``, which ``tests/test_torch_observe_gpt2.py``
+   runs at small size on the CPU): one ``ObservedGPT2`` actor at
+   ``num_gpus=0.5`` holds GPT-2-124M (phase 6's bf16 flash configuration,
+   seed 0), records a ``util.metrics`` Counter of its tokens and a
+   Histogram of each request's ms, and prints one line a request. Phase
+   6's 4 prompts go through ``experimental_compile(actor.generate.bind(
+   InputNode()))``, 16 greedy tokens each, one after another, while
+   ``util.profiling.profile_cpu`` (200 Hz) and ``profile_memory`` sample
+   the whole cluster for 3 s; then one direct ``actor.generate.remote``
+   call under a driver span with ``tracing.enable()``; the dashboard runs
+   in this process. Checks: every answer equal to phase 6's stream to the
+   token; the actor's own counts 768 ``flash_fwd`` launches (64 forwards
+   x 12 layers) and no backward; the merged CPU profile holds the actor's
+   pid and a stack with its ``actor:<id>`` frame and a frame of the
+   models (``models/gpt2.py``); the memory profile lists sites of the
+   actor's process; ``/metrics`` shows the counter at the tokens the
+   actor produced, the histogram's count at its requests and
+   ``ray_tpu_resources_total{resource="GPU"}`` at 1; ``get_log`` by the
+   actor's id returns exactly the lines it printed and by the traced
+   call's task id exactly that call's line; the actor's span has the
+   driver's span as its parent, came from the actor's pid, and both render
+   in ``ray_tpu_torch.timeline()``; the dashboard lists the actor ALIVE
+   and its cluster resources show the actor's half card held (the listing
+   carries no resources, in the reference as in the port). Prints, on the
+   host clock and not gated: a one-token call's round trip through the
+   compiled DAG, ``dag.execute`` and a direct call (median of 5), prompt
+   0's decode tokens/s without a sampler and inside a CPU profile, the
+   actor's start-up s; and the sample count, the actor's share of it, the
+   stacks through ``ops/attention.py`` and the top three memory sites.
 
 Every phase raises on a failed check; no failure is caught.
 
@@ -597,12 +628,15 @@ seconds). What was cut, each check standing as before: the nvcc
 build, then phases 33's and 35's runs, moved onto a lane beside phases
 28-31 and 24 (their checks later, in this process); phase 20's
 uninterrupted fit, whose losses generation 0 of the recovered run now
-gives; phase 36's f32 fit from 3 steps to 2; one profiled update of each
+gives; phase 36's f32 fit from 3 steps to 2; phase 34's first load
+window from 15 s to 10, with one more 5 s window allowed after it, so
+that the load still reaches 45 s if the second replica is slow to serve;
+one profiled update of each
 learner instead of three; phase 35's leases to half a card, so that its
 consumer starts under the workflow. Phase 19 lost nothing and gained (b).
-Phase 37 runs in phase 19's cluster, so it pays no cluster start of its
-own, and decodes its reference tokens on a thread while its replica
-starts; the ``seconds`` line counts it apart from phase 19.
+Phases 37 and 38 run in phase 19's cluster, so they pay no cluster start
+of their own; phase 37 decodes its reference tokens on a thread while its
+replica starts; the ``seconds`` line counts both apart from phase 19.
 
 The ``kernels`` line comes after phase 27: phase 15's entries (with the
 ring's diagonal and whole blocks at B*H 192, S 256 with phase 26's
@@ -619,8 +653,9 @@ autoscaled replicas' (``serve_autoscaled_replicas``), and phase 35's: the
 training shape's with the workflow's train step's launches
 (``workflow_train_step``) and the serving shape's ``flash_fwd`` with the
 serve step's (``workflow_serve_step``) and the queue consumer's
-(``queue_consumer``), and phase 37's serving-shape ``flash_fwd`` with the
-multiplexed replica's (``serve_multiplex_replica``); phase 15 also times
+(``queue_consumer``), phase 37's serving-shape ``flash_fwd`` with the
+multiplexed replica's (``serve_multiplex_replica``) and phase 38's with
+the DAG-driven actor's (``observed_dag_actor``); phase 15 also times
 the three kernels at the gang's
 shape (B*H 96: 8 rows x 12 heads, S 1024, D 64, causal), whose row
 (``gang_train``) takes the launches phase 36's workers counted. Then one
@@ -1001,6 +1036,14 @@ def phase_serve_f32():
                              "non-finite logits")
 
 
+def phase6_prompts():
+    """Phase 6's 4 prompts (32, 129, 300 and 512 tokens from seed 2), which
+    phases 19, 34, 37 and 38 send again and hold to phase 6's streams."""
+    rng = np.random.default_rng(2)
+    return [rng.integers(0, 50257, size=n).tolist()
+            for n in (32, 129, 300, 512)]
+
+
 async def _serve_requests(server, prompts, repeat):
     """Concurrent requests, then ``repeat``; per-request tokens and
     timestamps (submit, first token, last token)."""
@@ -1027,9 +1070,7 @@ def phase_serve_bf16():
                        model_kwargs=dict(attention="flash",
                                          dtype=torch.bfloat16, **GPT2_124M))
     llm = server.model
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, 50257, size=n).tolist()
-               for n in (32, 129, 300, 512)]
+    prompts = phase6_prompts()
 
     _zero_launches()
     llm.forwards = 0
@@ -1954,9 +1995,7 @@ def phase_serve_run(smi, bf16_streams, after=None):
     if labels.get("gpu-device-kind") != card:
         problems.append(f"gpu-device-kind {labels.get('gpu-device-kind')!r} "
                         f"is not nvidia-smi's {card!r}")
-    rng = np.random.default_rng(2)  # phase 6's prompts
-    prompts = [rng.integers(0, 50257, size=n).tolist()
-               for n in (32, 129, 300, 512)]
+    prompts = phase6_prompts()
     try:
         app = serve.deployment(_probed_llm_server(), name="llm").options(
             ray_actor_options={"num_gpus": 1}).bind(
@@ -2078,9 +2117,7 @@ def phase_serve_multiplex_redeploy(smi, port, bf16_streams):
     # phase 19's replica holds the card's whole lease
     serve.delete("default")
     model_kwargs = dict(attention="flash", dtype=torch.bfloat16, **GPT2_124M)
-    rng = np.random.default_rng(2)  # phase 6's prompts
-    prompts = [rng.integers(0, 50257, size=n).tolist()
-               for n in (32, 129, 300, 512)]
+    prompts = phase6_prompts()
     prompts.append(prompts[0])
     # the seed-0 model's tokens are phase 6's streams (its in-process
     # server's GPT2LLM is seed 0); models 1 and 2 decode here, on a thread
@@ -2137,6 +2174,52 @@ def phase_serve_multiplex_redeploy(smi, port, bf16_streams):
         raise AssertionError("serve_multiplex_redeploy: "
                              + "; ".join(problems))
     return v1["launches"]
+
+
+def phase_observe_dag_actor(smi, bf16_streams):
+    """Phase 38 in phase 19's cluster, after phase 37: a GPT-2 actor at
+    half a card driven by a compiled DAG, profiled, scraped, traced, listed
+    and its logs read back (``tools/observe_runs.drive``). Returns the
+    actor's launch counts over its 4 answers."""
+    from ray_tpu_torch.tools import observe_runs as ob
+
+    model_kwargs = dict(attention="flash", dtype=torch.bfloat16, **GPT2_124M)
+    prompts = phase6_prompts()
+    out = ob.drive(prompts, model_kwargs)
+    probe, prof = out["probe"], out["profile"]
+    emit("observe_dag_actor", prompt_lens=[len(p) for p in prompts],
+         tokens=out["answers"], forwards=probe["forwards"],
+         launches=probe["launches"], actor_pid=probe["pid"],
+         actor_device=probe["device"],
+         actor_device_name=probe["device_name"],
+         actor_start_s=out["start_s"], actor_model_init_s=out["init_s"],
+         first_dag_call_s=out["first_dag_call_s"],
+         one_token_round_trip_s=out["round_trip_s"],
+         decode_s=out["decode_s"], answer_ms=out["answer_ms"],
+         decode_tokens_per_s=out["tokens_per_s"],
+         cpu_profile={k: prof[k] for k in (
+             "cpu_samples", "cpu_processes", "actor_samples",
+             "actor_share", "actor_model_stacks", "attention_stacks")},
+         mem_profile={"processes": prof["mem_processes"],
+                      "actor_sites": prof["mem_actor_sites"],
+                      "top_sites": prof["mem_top_sites"]},
+         scrape=out["scrape"], actor_log_lines=len(out["actor_log"]),
+         traced_task_log=out["traced_task_log"],
+         spans=out["spans"], timeline_spans=out["timeline_spans"],
+         listing=out["listing"], resources=out["resources"],
+         nvidia_smi=smi,
+         note="launches and forwards are the actor's, zeroed before its 4 "
+              "answers through the compiled DAG and read after, while both "
+              "cluster profilers sampled; round trips are the median of "
+              f"{ob.ROUND_TRIPS} one-token calls on the host clock; "
+              "decode tokens/s of prompt 0 on the actor's clock, without a "
+              "sampler and inside a CPU profile")
+    problems = ob.problems(out, bf16_streams[:len(prompts)],
+                           GPT2_124M["n_layer"],
+                           device_name=torch.cuda.get_device_name(0))
+    if problems:
+        raise AssertionError("observe_dag_actor: " + "; ".join(problems))
+    return probe["launches"]
 
 
 # phase 19 (b): the card's memory may grow by less than half of GPT-2-124M's
@@ -2637,11 +2720,13 @@ def _recording(fit_impl, reports, ack):
 
 
 # Phase 21: Tune's ASHA over the lr of ViT-B/16 trials, four at a time on
-# the card: one wave (the depth cut from two to keep the whole script in
-# its time). Two rates of the grid barely move the loss, so ASHA has
-# trials to stop at its rungs unless the four arrive best last at every
-# rung. 1e-4 is phase 13's lr.
-TUNE_ASHA = {"lrs": (1e-4, 1e-3, 3e-6, 1e-7),
+# the card: a wave of four and a fifth trial. Two rates of the wave barely
+# move the loss, yet the four may reach each rung worst first, and then
+# ASHA rightly stops none of them. The fifth, the grid's lowest lr and so
+# its highest loss at the first rung, starts only when one of the four
+# ends: the first rung then holds results of the wave, so ASHA stops it
+# there whatever their order. 1e-4 is phase 13's lr.
+TUNE_ASHA = {"lrs": (1e-4, 1e-3, 3e-6, 1e-7, 1e-8),
              "max_t": 8, "grace_period": 2, "reduction_factor": 2,
              "concurrent": 4, "gpu": 0.25, "phase13_lr": 1e-4,
              "vs_phase13_steps": 5, "vs_phase13_limit": 1e-2}
@@ -2659,7 +2744,7 @@ def _max_overlap(spans):
 
 def phase_tune_asha(smi, vit_losses, vit_step_ms):
     """``Tuner(TorchTrainer(tune_runs.vit_trial_loop)).fit()``: ASHA over
-    the lr of 4 ViT-B/16 trials at full width, each a gang of one worker
+    the lr of 5 ViT-B/16 trials at full width, each a gang of one worker
     leasing a quarter of the card, 4 at a time (phase 13's weights, batch
     and model; ``vit_losses`` and ``vit_step_ms`` are phase 13's)."""
     import shutil
@@ -2668,6 +2753,7 @@ def phase_tune_asha(smi, vit_losses, vit_step_ms):
     import ray_tpu_torch as rt
     from ray_tpu_torch._private.worker import global_worker
     from ray_tpu_torch.tools import tune_runs
+    from ray_tpu_torch.util import state
 
     cfg = TUNE_ASHA
     asha = {k: cfg[k] for k in ("max_t", "grace_period", "reduction_factor")}
@@ -2687,6 +2773,10 @@ def phase_tune_asha(smi, vit_losses, vit_step_ms):
         wall_s = time.perf_counter() - t0
         best = grid.get_best_result().metrics
         errors = [str(e) for e in grid.errors]
+        # a failed trial's actors as the GCS recorded their end
+        deaths = sorted({a["death_cause"] for a in state.list_actors()
+                         if a["state"] == "DEAD" and a["death_cause"]}) \
+            if errors else []
     finally:
         rt.shutdown()
         shutil.rmtree(root, ignore_errors=True)
@@ -2750,7 +2840,7 @@ def phase_tune_asha(smi, vit_losses, vit_step_ms):
          replay_equal=replayed == decided,
          best_lr=best["config"]["train_loop_config"]["lr"],
          lowest_last_loss_lr=lowest["lr"], launches=launches,
-         errors=errors, processes_left=left,
+         errors=errors, dead_actor_causes=deaths, processes_left=left,
          note="step ms on each worker's host clock around one step and its "
               "float(loss), 4 trials sharing the card; worker_start_to_loop "
               "covers the worker's spawn, torch's import and the NCCL "
@@ -2758,7 +2848,8 @@ def phase_tune_asha(smi, vit_losses, vit_step_ms):
     n_layer = tune_runs.MODELS[tune_runs.LOOP["model"]]().n_layer
     problems = []
     if errors or len(trials) != len(cfg["lrs"]):
-        problems.append(f"{len(trials)} trials, errors {errors}")
+        problems.append(f"{len(trials)} trials, errors {errors}, dead "
+                        f"actors' causes {deaths}")
     for t in trials:
         want = dict.fromkeys(KERNELS, n_layer * t["iterations"])
         if t["launches"] != want:
@@ -2779,6 +2870,10 @@ def phase_tune_asha(smi, vit_losses, vit_step_ms):
                         f"13's {vit_losses}")
     if not stopped:
         problems.append("ASHA stopped no trial before max_t")
+    if stopped.get(cfg["lrs"][-1]) != cfg["grace_period"]:
+        problems.append(f"ASHA stopped the last lr {cfg['lrs'][-1]} at "
+                        f"{stopped.get(cfg['lrs'][-1])}, not at the first "
+                        f"rung {cfg['grace_period']}")
     if replayed != decided:
         problems.append(f"ASHA decided {decided}, a replay {replayed}")
     if best["config"]["train_loop_config"]["lr"] != lowest["lr"]:
@@ -4375,11 +4470,11 @@ def phase_cluster_cli(smi, out, bf16_losses, inproc_step_ms):
 # phase 34: phase 19's GPT-2 deployment under load_harness with replica
 # autoscaling: 1 to 2 replicas at half a card each, a target of 2 ongoing
 # requests a replica, 8 connections, phase 6's prompts in turn at 8
-# requests a second for 15 s (more than one replica answers: 5.6 a second
+# requests a second for 10 s (more than one replica answers: 5.6 a second
 # on an H100 at 12 offered), then windows of 5 s until the second replica
-# has served (at most 6)
+# has served (at most 7: 45 s of load in all)
 SERVE_AUTOSCALE = {"target_ongoing": 2, "connections": 8, "rps": 8.0,
-                   "load_s": 15.0, "window_s": 5.0, "max_windows": 6}
+                   "load_s": 10.0, "window_s": 5.0, "max_windows": 7}
 
 
 def _replica_actors(app, deployment):
@@ -4501,9 +4596,7 @@ def phase_serve_autoscale(smi, bf16_streams):
     2 replicas, both launch ``flash_fwd`` and every answer equals phase
     6's in-process greedy tokens for its prompt. Returns the replicas'
     summed launch counts."""
-    rng = np.random.default_rng(2)  # phase 6's prompts
-    prompts = [rng.integers(0, 50257, size=n).tolist()
-               for n in (32, 129, 300, 512)]
+    prompts = phase6_prompts()
     want = [list(s) for s in bf16_streams[:4]]
     os.environ["RAY_TPU_TORCH_gpu_autodetect"] = "1"  # the raylet's probe
     try:
@@ -4665,9 +4758,6 @@ def phase_workflow_queue(smi, run, bf16_losses, bf16_streams):
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     steps = WORKFLOW["steps"]
-    rng = np.random.default_rng(2)  # phase 6's prompts
-    phase6_prompts = [rng.integers(0, 50257, size=n).tolist()
-                      for n in WORKFLOW["prompt_lens"]]
     card = smi.split(",")[0].strip()
     emit("workflow_queue",
          config="train_step: gpt2_124m attention=flash loss_chunks=8 "
@@ -4709,7 +4799,7 @@ def phase_workflow_queue(smi, run, bf16_losses, bf16_streams):
     if serve["tokens"] != inproc or out["output"]["tokens"] != inproc:
         problems.append("the served tokens differ from the in-process "
                         "decode of the saved weights")
-    if q["prompts"] != phase6_prompts:
+    if q["prompts"] != phase6_prompts():
         problems.append("the pool's prompts differ from phase 6's")
     if q["tokens"] != [list(s) for s in bf16_streams[:4]]:
         problems.append(f"the consumer's tokens {q['tokens']} differ from "
@@ -5861,12 +5951,17 @@ def main() -> int:
                              llama_train, vit_train, moe_train, ring)
     timed("llama_trace", phase_llama_trace, llama_serve)
     timed("moe_trace", phase_moe_trace, moe_train[1])
-    multiplex_launches = timed(
-        "serve_run", phase_serve_run, smi, bf16_streams,
-        lambda port: timed("serve_multiplex_redeploy",
-                           phase_serve_multiplex_redeploy, smi, port,
-                           bf16_streams))
-    seconds["serve_run"] -= seconds["serve_multiplex_redeploy"]
+    def after_serve_run(port):
+        return (timed("serve_multiplex_redeploy",
+                      phase_serve_multiplex_redeploy, smi, port,
+                      bf16_streams),
+                timed("observe_dag_actor", phase_observe_dag_actor, smi,
+                      bf16_streams))
+
+    multiplex_launches, observed_launches = timed(
+        "serve_run", phase_serve_run, smi, bf16_streams, after_serve_run)
+    seconds["serve_run"] -= (seconds["serve_multiplex_redeploy"]
+                             + seconds["observe_dag_actor"])
     nccl_ops = timed("train_fit", phase_train_fit, smi, bf16_losses, step_ms)
     tune_launches = timed("tune_asha_vit", phase_tune_asha, smi, vit_train[2],
                           vit_train[1])
@@ -5904,7 +5999,9 @@ def main() -> int:
         ("queue_consumer", consumer,
          "the queue's consumer actor counted"),
         ("serve_multiplex_replica", multiplex_launches,
-         "the multiplexed replica's over its 5 answers, counted in it")])
+         "the multiplexed replica's over its 5 answers, counted in it"),
+        ("observed_dag_actor", observed_launches,
+         "the DAG-driven actor's over its 4 answers, counted in it")])
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("seconds", **seconds, main_s=time.perf_counter() - t_main)
     print(smi, flush=True)

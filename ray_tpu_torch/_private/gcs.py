@@ -25,7 +25,7 @@ from typing import Dict, List, Optional, Set
 from ray_tpu_torch._private import faultsim
 from ray_tpu_torch._private.common import NodeInfo, TaskSpec, place_bundles, res_fits
 from ray_tpu_torch._private.config import GLOBAL_CONFIG as cfg
-from ray_tpu_torch._private.rpcio import Connection, RpcServer, spawn
+from ray_tpu_torch._private.rpcio import Connection, RpcServer, own_stall_s, spawn
 
 logger = logging.getLogger(__name__)
 
@@ -515,10 +515,16 @@ class GcsServer:
                 pass
 
     async def _health_loop(self):
+        tick = time.monotonic()
         while True:
             await asyncio.sleep(cfg.heartbeat_interval_s)
             now = time.monotonic()
+            # the heartbeats sent while this process stalled still wait
+            # unread behind this check: its own stall is no node's silence
+            stalled = own_stall_s(now - tick, cfg.heartbeat_interval_s)
+            tick = now
             for node in list(self.nodes.values()):
+                node.last_heartbeat += stalled
                 if node.alive and now - node.last_heartbeat > cfg.node_death_timeout_s:
                     await self._mark_node_dead(node.node_id, "heartbeat timeout")
             await self._broadcast_view()

@@ -467,12 +467,19 @@ class Connection:
 
         interval = GLOBAL_CONFIG.rpc_keepalive_interval_s
         timeout = GLOBAL_CONFIG.rpc_keepalive_timeout_s
+        tick = time.monotonic()
         try:
             while not self._closed:
                 await asyncio.sleep(interval)
                 if self._closed:
                     return
-                idle = time.monotonic() - self._last_rx
+                now = time.monotonic()
+                # a wake-up late by more than an interval is this process's
+                # own stall (a paused host, a starved loop), not the peer's
+                # silence: a peer paused with it had nothing to send
+                self._last_rx += own_stall_s(now - tick, interval)
+                tick = now
+                idle = now - self._last_rx
                 if idle > timeout:
                     logger.warning(
                         "rpc keepalive timeout on %s (%.1fs idle > %.1fs); "
@@ -998,6 +1005,17 @@ class Connection:
     @property
     def closed(self):
         return self._closed
+
+
+def own_stall_s(elapsed: float, interval: float) -> float:
+    """The seconds a periodic check that slept ``interval`` and woke
+    ``elapsed`` after its last round lost to its own process stalling:
+    the overshoot once it exceeds one interval, else 0. A failure detector
+    adds them to its peers' silence clock, so that a pause of the whole
+    host (every process frozen alike) or of this process alone is not
+    read as the peers' silence."""
+    late = elapsed - interval
+    return late if late > interval else 0.0
 
 
 class RpcServer:

@@ -7,11 +7,18 @@ name must appear as a ``def`` of the same name in
 marked slow there too. One parametrised case per file: ``CARRIED`` holds
 the control plane and fault tolerance (13 files), ``CARRIED_SLICE_19`` the
 runtime environments, Serve and the learner group (8 files), beside which
-two cases of ``tests/test_serve.py`` live in ``tests/test_torch_serve.py``.
+two cases of ``tests/test_serve.py`` live in ``tests/test_torch_serve.py``,
+and ``CARRIED_SLICE_20`` observability (7 files).
+
+``test_every_reference_file_has_a_port_test`` checks the whole tree: every
+reference ``tests/test_<name>.py`` has a ``tests/test_torch_<name>.py`` or
+a port test that names ``test_<name>``.
 """
 
 import ast
+import glob
 import os
+import re
 
 import pytest
 
@@ -28,6 +35,11 @@ CARRIED_SLICE_19 = {
     "runtime_env": 5, "runtime_env_container": 4, "runtime_env_plugins": 9,
     "serve_asgi": 4, "serve_schema": 3, "serve_grpc_typed": 3,
     "serve_proxy_fleet": 2, "learner_group": 4,
+}
+
+CARRIED_SLICE_20 = {
+    "profiler": 16, "logs": 19, "metrics": 18, "tracing": 4,
+    "observability": 4, "dashboard": 4, "compiled_dag": 4,
 }
 
 SERVE_CASES = ("test_multiplexed_models", "test_redeploy_updates_code")
@@ -67,6 +79,44 @@ def test_slice_19_reference_cases_are_carried(name):
     _check_carried(name, CARRIED_SLICE_19[name])
 
 
+@pytest.mark.parametrize("name", sorted(CARRIED_SLICE_20))
+def test_slice_20_reference_cases_are_carried(name):
+    _check_carried(name, CARRIED_SLICE_20[name])
+
+
+def _uncarried(skip=()):
+    """The names of the reference's ``tests/test_<name>.py`` files with no
+    ``tests/test_torch_<name>.py`` and no port test (``skip`` aside) whose
+    text names ``test_<name>``."""
+    ports = {}
+    for path in glob.glob(os.path.join(TESTS, "test_torch_*.py")):
+        if os.path.basename(path) not in skip:
+            with open(path, encoding="utf-8") as f:
+                ports[os.path.basename(path)] = f.read()
+    found = []
+    for path in sorted(glob.glob(os.path.join(TESTS, "test_*.py"))):
+        base = os.path.basename(path)
+        if base.startswith("test_torch_"):
+            continue
+        name = base[len("test_"):-len(".py")]
+        named = re.compile(r"\btest_%s\b" % re.escape(name))
+        if f"test_torch_{name}.py" not in ports and \
+                not any(named.search(text) for text in ports.values()):
+            found.append(name)
+    return found
+
+
+def test_every_reference_file_has_a_port_test():
+    assert _uncarried() == []
+
+
+def test_the_whole_tree_check_sees_a_file_left_uncarried():
+    """Without slice 20's files the check names exactly its 7 reference
+    files: none of them is named by another port test."""
+    skip = {f"test_torch_{name}.py" for name in CARRIED_SLICE_20}
+    assert _uncarried(skip) == sorted(CARRIED_SLICE_20)
+
+
 def test_slice_19_serve_cases_are_carried():
     ref = _cases(os.path.join(TESTS, "test_serve.py"))
     port = _cases(os.path.join(TESTS, "test_torch_serve.py"))
@@ -98,3 +148,7 @@ def test_the_slice_counts_102_cases():
 
 def test_slice_19_counts_36_cases():
     assert sum(CARRIED_SLICE_19.values()) + len(SERVE_CASES) == 36
+
+
+def test_slice_20_counts_69_cases():
+    assert sum(CARRIED_SLICE_20.values()) == 69

@@ -10,9 +10,26 @@ cluster in ``tests/conftest.py`` as it is. Import them into a test module:
 ``from tests.torch_fixtures import port_regular``.
 """
 
+import contextlib
+
 import pytest
 
 import ray_tpu_torch
+
+
+@contextlib.contextmanager
+def own_port_cluster(**init_kwargs):
+    """A port cluster of the caller's own, for a module fixture that starts
+    one as the reference's module does: a port cluster this process left
+    up (an earlier module on the same xdist worker) is shut down first,
+    where ``init`` would raise "called twice"."""
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(**init_kwargs)
+    try:
+        yield
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 @pytest.fixture(scope="module")
